@@ -11,6 +11,7 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from lpformer_tpu_torch import resolve_device
 from lpformer_tpu_torch.graph import preprocess as pp
@@ -60,6 +61,7 @@ def build_graph_bundle(
     ppr_csr: CSRGraph,
     adj_cap: Optional[int] = None,
     ppr_cap: Optional[int] = None,
+    mask_uniq_keys: Optional[np.ndarray] = None,
     device=None,
 ) -> GraphBundle:
     """Assemble the graph state from the raw edge_index on ``device``:
@@ -69,6 +71,9 @@ def build_graph_bundle(
       * the binarized padded rows for context extraction, valued with the
         self-PPR ppr(u, v) (adj_mask, :95);
       * padded PPR rows from ``ppr_csr``, flagged where v is in N(u).
+    With ``mask_uniq_keys`` (the sorted unique train-edge keys of
+    ``masking.train_edge_info``) the adjacency rows carry each entry's
+    train-edge rank, which batch masking in training reads.
     """
     if num_nodes >= BLOCKED_MIN_NODES:
         raise NotImplementedError(
@@ -81,6 +86,8 @@ def build_graph_bundle(
         s.astype(np.int32), d.astype(np.int32), w, num_nodes
     )
     adj_csr = pp.edges_to_csr(s, d, w, num_nodes, coalesce=False)
+    entry_ranks = (None if mask_uniq_keys is None
+                   else masking.edge_ranks_for_csr(adj_csr, mask_uniq_keys))
     adj_selfppr, ppr_in_adj = _cross_lookup(adj_csr, ppr_csr)
     adj_bin = pp.binarize_csr(adj_csr)
     # adjacency row values = self-PPR: on cap overflow the rows keep the
@@ -89,7 +96,8 @@ def build_graph_bundle(
         indptr=adj_bin.indptr, indices=adj_bin.indices,
         weights=adj_selfppr, num_nodes=num_nodes,
     )
-    adj_rows = PaddedRows.from_csr(adj_bin, cap=adj_cap)
+    adj_rows = PaddedRows.from_csr(adj_bin, cap=adj_cap,
+                                   entry_ranks=entry_ranks)
     ppr_rows = PaddedRows.from_csr(ppr_csr, cap=ppr_cap,
                                    entry_flags=ppr_in_adj)
     deg = pp.out_degrees(np.asarray(edge_src, np.int64), num_nodes)
@@ -140,3 +148,10 @@ class LinkPredDataset:
             self.mask_uniq_keys, self.mask_mult = masking.train_edge_info(
                 self.train_pos[:, 0], self.train_pos[:, 1], self.num_nodes
             )
+
+    @property
+    def mask_mult_device(self) -> torch.Tensor:
+        """Train-edge multiplicities as an int32 tensor on the graph's
+        device, for ``masking.batch_mask_ranks``."""
+        return torch.as_tensor(self.mask_mult, dtype=torch.int32).to(
+            self.graph.x.device)

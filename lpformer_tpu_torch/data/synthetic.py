@@ -14,6 +14,7 @@ import numpy as np
 from lpformer_tpu_torch import resolve_device
 from lpformer_tpu_torch.data.dataset import LinkPredDataset, build_graph_bundle
 from lpformer_tpu_torch.graph import ppr as ppr_mod
+from lpformer_tpu_torch.ops import masking
 
 
 def random_edges(
@@ -67,9 +68,10 @@ def synthetic_dataset(
         np.concatenate([src, dst]), np.concatenate([dst, src]),
         num_nodes, alpha, eps, method=ppr_method,
     )
+    uniq, _ = masking.train_edge_info(src, dst, num_nodes)
     graph = build_graph_bundle(
         x, src, dst, None, num_nodes, ppr_csr,
-        adj_cap=adj_cap, ppr_cap=ppr_cap, device=dev,
+        adj_cap=adj_cap, ppr_cap=ppr_cap, mask_uniq_keys=uniq, device=dev,
     )
     idx = rng.permutation(len(train_pos))[: len(valid_pos)]
     return LinkPredDataset(

@@ -46,9 +46,9 @@ class PaddedRows:
     """[N, K] padded per-row neighbour lists, sorted ascending, pad = N.
 
     The pad id equals ``num_nodes``, so sorted order holds (all real ids
-    are < N). ``vals`` are 0.0 and ``flags`` False at pads. (The train-edge
-    ``ranks`` of the JAX container serve batch masking in training and
-    come with the training slice.)
+    are < N). ``vals`` are 0.0 and ``flags`` False at pads. ``ranks`` carry
+    each entry's undirected-train-edge rank (``ops/masking.py``), -1 at
+    pads and at entries that are no train edge.
     """
 
     nbrs: torch.Tensor             # [N, K] int32
@@ -57,17 +57,19 @@ class PaddedRows:
     flags: Optional[torch.Tensor]  # [N, K] bool
     cap: int
     num_nodes: int
+    ranks: Optional[torch.Tensor] = None  # [N, K] int32
 
     @staticmethod
     def from_csr(
         csr: CSRGraph,
         cap: Optional[int] = None,
         entry_flags: Optional[np.ndarray] = None,
+        entry_ranks: Optional[np.ndarray] = None,
     ) -> "PaddedRows":
         """Rows longer than ``cap`` keep the ``cap`` entries with the largest
         weights (ties -> smaller node id), then are re-sorted by id.
-        ``entry_flags`` are aligned with the CSR entries and carried into
-        the padded layout. Returns numpy-backed rows;
+        ``entry_flags`` and ``entry_ranks`` are aligned with the CSR entries
+        and carried into the padded layout. Returns numpy-backed rows;
         call :meth:`to` to move them."""
         n = csr.num_nodes
         deg = csr.indptr[1:] - csr.indptr[:-1]
@@ -76,6 +78,8 @@ class PaddedRows:
         nbrs = np.full((n, k), n, dtype=np.int32)
         vals = np.zeros((n, k), dtype=np.float32)
         flg = None if entry_flags is None else np.zeros((n, k), dtype=bool)
+        rks = (None if entry_ranks is None
+               else np.full((n, k), -1, dtype=np.int32))
         counts = np.minimum(deg, k).astype(np.int32)
 
         # order each row's entries by descending weight so a cap keeps the
@@ -95,15 +99,19 @@ class PaddedRows:
         vals[rk, pk] = csr.weights[ok]
         if flg is not None:
             flg[rk, pk] = entry_flags[ok]
+        if rks is not None:
+            rks[rk, pk] = entry_ranks[ok]
         if max_deg > k:
             resort = np.argsort(nbrs, axis=1, kind="stable")
             nbrs = np.take_along_axis(nbrs, resort, axis=1)
             vals = np.take_along_axis(vals, resort, axis=1)
             if flg is not None:
                 flg = np.take_along_axis(flg, resort, axis=1)
+            if rks is not None:
+                rks = np.take_along_axis(rks, resort, axis=1)
         return PaddedRows(
             nbrs=nbrs, vals=vals, counts=counts,
-            flags=flg, cap=k, num_nodes=n,
+            flags=flg, cap=k, num_nodes=n, ranks=rks,
         )
 
     def to(self, device) -> "PaddedRows":
@@ -111,6 +119,7 @@ class PaddedRows:
             self,
             nbrs=_to(self.nbrs, device), vals=_to(self.vals, device),
             counts=_to(self.counts, device), flags=_to(self.flags, device),
+            ranks=_to(self.ranks, device),
         )
 
 

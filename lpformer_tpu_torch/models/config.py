@@ -1,9 +1,9 @@
 """Model configuration (counterpart of ``lpformer_tpu/models/config.py``).
 
-The fields the eval path reads, with the JAX package's names and defaults.
-Dropout rates and the TPU-only switches (``use_pallas_attention``,
-``remat_pairwise``) are not here: the port's eval path has no dropout, and
-on a CUDA tensor it always runs the hand-written kernel.
+The fields the eval and training paths read, with the JAX package's names
+and defaults. The TPU-only switches (``use_pallas_attention``,
+``remat_pairwise``) are not here: on a CUDA tensor the port always runs
+the hand-written kernels, and it has no remat yet.
 """
 from __future__ import annotations
 
@@ -30,6 +30,12 @@ class LPFormerConfig:
     layer_norm: bool = True
     relu: bool = True
 
+    dropout: float = 0.2      # post-attention dropout in the transformer layer
+    gnn_drop: float = 0.2
+    att_drop: float = 0.1     # context-node subsampling rate
+    feat_drop: float = 0.0
+    pred_drop: float = 0.0
+
     # "bfloat16": every matmul takes bf16 inputs and accumulates in f32
     # (nn/core.py:matmul), and the context key tables are bf16
     matmul_dtype: str = "float32"
@@ -53,6 +59,7 @@ class LPFormerConfig:
             thresh_cn=self.thresh_cn,
             thresh_1hop=self.thresh_1hop,
             thresh_non1hop=self.thresh_non1hop,
+            att_drop=self.att_drop,
             budget_combined=self.budget_combined,
         )
 

@@ -8,7 +8,7 @@ normalisation; the other propagation layouts come with later slices.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -50,12 +50,17 @@ def gcn_apply(
     ell,
     w_diag: torch.Tensor,
     *,
+    gnn_drop: float = 0.0,
     residual: bool = False,
     relu: bool = True,
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
     mm_dtype=None,
 ) -> torch.Tensor:
-    """Eval-mode GCN over the BucketedELL ``ell`` with its prelaid static
-    weights; ``w_diag`` is the normalised self-loop coefficient."""
+    """GCN over the BucketedELL ``ell`` with its prelaid static weights;
+    ``w_diag`` is the normalised self-loop coefficient. With ``train`` and
+    a generator, each layer draws one ``gnn_drop`` dropout mask between
+    its LayerNorm and its ReLU."""
     lns = params.get("lns")
     for i, conv in enumerate(params["convs"]):
         xi = nn.matmul(x, conv["w"], mm_dtype)
@@ -63,6 +68,7 @@ def gcn_apply(
         xi = xi + conv["bias"]
         if lns is not None:
             xi = nn.layer_norm_apply(lns[i], xi)
+        xi = nn.dropout(gen, xi, gnn_drop, train)
         if relu:
             xi = torch.relu(xi)
         if residual and x.shape[-1] == xi.shape[-1]:

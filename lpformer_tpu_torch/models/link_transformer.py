@@ -1,5 +1,5 @@
 """LPFormer for link prediction (counterpart of
-``lpformer_tpu/models/link_transformer.py``), eval path.
+``lpformer_tpu/models/link_transformer.py``), eval and train paths.
 
   h(a, b) = [ MLP(x_a * x_b)  ||  pairwise(a, b) ]               (:82-107)
   pairwise = MLP( attention over a's and b's context nodes || counts )
@@ -15,10 +15,17 @@ JAX package's Pallas kernel, which it switches on by itself on a TPU).
 Parameters are the JAX package's pytree as nested dicts of tensors
 (``utils/params.py``). The classic per-class context table
 (``budget_combined=None``) and ``num_heads > 1`` are not ported yet.
+
+Training (``train=True``) adds the reference's dropouts, drawn in a fixed
+order from one ``torch.Generator`` on the model's device: feat_drop on the
+input features, gnn_drop in every GCN layer, att_drop as context
+subsampling, dropout after each attention layer's post-LayerNorm and
+pred_drop in the score head; and the batch's positive edges are masked out
+of the context adjacency (``mask_ranks``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -84,16 +91,19 @@ def init_lpformer(
     return p
 
 
-def propagate(params: Dict, cfg: LPFormerConfig,
-              graph: GraphBundle) -> torch.Tensor:
+def propagate(params: Dict, cfg: LPFormerConfig, graph: GraphBundle, *,
+              gen: Optional[torch.Generator] = None,
+              train: bool = False) -> torch.Tensor:
     """GNN node encoding + final LayerNorm -> X_node [N, dim]
     (reference: link_transformer.py:110-129, node_encoder.py:35-44)."""
     params = nn.cast_matmul_weights(params, cfg.mm_dtype)
     if graph.ell is None:
         raise NotImplementedError("propagation needs the BucketedELL layout")
+    x = nn.dropout(gen, graph.x, cfg.feat_drop, train)
     x = gcn_apply(
-        params["node_encoder"], graph.x, graph.ell, graph.w_diag,
-        residual=cfg.residual, relu=cfg.relu, mm_dtype=cfg.mm_dtype,
+        params["node_encoder"], x, graph.ell, graph.w_diag,
+        gnn_drop=cfg.gnn_drop, residual=cfg.residual, relu=cfg.relu,
+        gen=gen, train=train, mm_dtype=cfg.mm_dtype,
     )
     return nn.layer_norm_apply(params["gnn_norm"], x)
 
@@ -112,12 +122,15 @@ def _encoder_codes(cfg: LPFormerConfig):
 def _att_layer_apply(
     lp: Dict, params: Dict, cfg: LPFormerConfig, edge_x: torch.Tensor,
     xj_node: torch.Tensor, ctx: ContextTables,
+    gen: Optional[torch.Generator] = None, train: bool = False,
 ) -> torch.Tensor:
     """One attention layer through the fused PE + attention op. The PE
     MLPs' last linear is folded into W_r's PE half here (w2f = W2 @
-    W_r[d:], cbias = 2 b2 @ W_r[d:] + b_r), so the op's PE lands directly
-    in the projected key space; ``ecls`` maps the context class codes to
-    encoder indices 0..K-1."""
+    W_r[d:], cbias = 2 b2 @ W_r[d:] + b_r), in plain torch, so the op's
+    stacked-weight grads flow back to the true parameter leaves and its PE
+    lands directly in the projected key space; ``ecls`` maps the context
+    class codes to encoder indices 0..K-1. Post-LayerNorm, then dropout
+    (reference layers.py:78-80)."""
     half = edge_x.shape[-1] // 2
     e1 = nn.linear_apply(lp["lin_l"], edge_x[:, :half], cfg.mm_dtype)
     e2 = nn.linear_apply(lp["lin_l"], edge_x[:, half:], cfg.mm_dtype)
@@ -145,12 +158,14 @@ def _att_layer_apply(
         torch.stack(w2f).to(xj_node.dtype), torch.stack(cbias),
         lp["att"], lp["bias"],
     )
-    return nn.layer_norm_apply(lp["post_norm"], out)
+    out = nn.layer_norm_apply(lp["post_norm"], out)
+    return nn.dropout(gen, out, cfg.dropout, train)
 
 
 def calc_pairwise(
     params: Dict, cfg: LPFormerConfig, X_node: torch.Tensor,
-    src: torch.Tensor, tgt: torch.Tensor, ctx: ContextTables,
+    src: torch.Tensor, tgt: torch.Tensor, ctx: ContextTables, *,
+    gen: Optional[torch.Generator] = None, train: bool = False,
 ) -> torch.Tensor:
     """Pairwise term over the extracted context table
     (reference: link_transformer.py:132-178)."""
@@ -176,7 +191,8 @@ def calc_pairwise(
             [X_proj, torch.zeros((1, W.shape[1]), dtype=kd,
                                  device=X_proj.device)], dim=0)
         xj_node = gather_rows_valid(X_proj, ctx.ids, ctx.valid)  # [B, C, O]
-        feats = _att_layer_apply(lp, params, cfg, feats, xj_node, ctx)
+        feats = _att_layer_apply(lp, params, cfg, feats, xj_node, ctx,
+                                 gen, train)
 
     counts = ctx.counts  # [B, 4]: cns, 1hop, non1hop, neighbours
     if cfg.mask_mode == "cn":
@@ -192,30 +208,39 @@ def calc_pairwise(
 
 def forward(
     params: Dict, cfg: LPFormerConfig, graph: GraphBundle,
-    src: torch.Tensor, tgt: torch.Tensor, *, X_node: torch.Tensor = None,
+    src: torch.Tensor, tgt: torch.Tensor, *,
+    gen: Optional[torch.Generator] = None, train: bool = False,
+    mask_ranks: Optional[torch.Tensor] = None,
+    X_node: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Edge representation h(a, b) [B, 2*dim] in eval mode
+    """Edge representation h(a, b) [B, 2*dim]
     (reference: link_transformer.py:82-107). Pass ``X_node`` to reuse a
-    propagated encoding (the propagate-once eval path)."""
+    propagated encoding (the propagate-once eval path, and the shared
+    propagation of a training step); ``mask_ranks`` is the batch's
+    masked-rank bitmap (``ops/masking.batch_mask_ranks``)."""
     params = nn.cast_matmul_weights(params, cfg.mm_dtype)
     if X_node is None:
-        X_node = propagate(params, cfg, graph)
+        X_node = propagate(params, cfg, graph, gen=gen, train=train)
     elementwise = nn.mlp_apply(
         params["elementwise_lin"],
         gather_rows(X_node, src) * gather_rows(X_node, tgt),
         mm_dtype=cfg.mm_dtype,
     )
     ctx = extract_context(graph.adj_rows, graph.ppr_rows, src, tgt,
-                          cfg.context)
-    pairwise = calc_pairwise(params, cfg, X_node, src, tgt, ctx)
+                          cfg.context, mask_ranks=mask_ranks, gen=gen,
+                          train=train)
+    pairwise = calc_pairwise(params, cfg, X_node, src, tgt, ctx, gen=gen,
+                             train=train)
     return torch.cat([elementwise, pairwise], dim=-1)
 
 
-def score_links(params: Dict, cfg: LPFormerConfig,
-                h: torch.Tensor) -> torch.Tensor:
+def score_links(params: Dict, cfg: LPFormerConfig, h: torch.Tensor, *,
+                gen: Optional[torch.Generator] = None,
+                train: bool = False) -> torch.Tensor:
     """sigmoid(mlp_score(h)) -> [B] link probabilities
     (reference: other_models.py:173-179)."""
     return nn.mlp_apply(
         nn.cast_matmul_weights(params["score"], cfg.mm_dtype), h,
-        sigmoid=True, mm_dtype=cfg.mm_dtype,
+        drop=cfg.pred_drop, gen=gen, train=train, sigmoid=True,
+        mm_dtype=cfg.mm_dtype,
     )

@@ -13,7 +13,7 @@ reference.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
@@ -101,6 +101,20 @@ def layer_norm_apply(
     return (x - mu) * torch.rsqrt(var + eps) * params["g"] + params["b"]
 
 
+def dropout(
+    gen: Optional[torch.Generator], x: torch.Tensor, rate: float, train: bool
+) -> torch.Tensor:
+    """Inverted dropout (torch semantics: scale by 1/(1-p) at train). The
+    keep mask is drawn from ``gen``, a generator on x's device; without
+    one, or at eval, x passes unchanged."""
+    if not train or rate <= 0.0 or gen is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
+
+
 def mlp_init(
     gen: torch.Generator,
     num_layers: int,
@@ -130,16 +144,21 @@ def mlp_init(
 def mlp_apply(
     params: Dict,
     x: torch.Tensor,
+    drop: float = 0.0,
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
     sigmoid: bool = False,
     mm_dtype=None,
 ) -> torch.Tensor:
-    """Eval-mode apply (no dropout); a last dim of 1 is squeezed."""
+    """Hidden layers [Linear -> norm -> relu -> dropout(drop)], then the
+    bare last Linear; a last dim of 1 is squeezed."""
     layers = params["layers"]
     for lp in layers[:-1]:
         x = linear_apply(lp, x, mm_dtype)
         if "norm" in params:
             x = layer_norm_apply(params["norm"], x)
         x = torch.relu(x)
+        x = dropout(gen, x, drop, train)
     x = linear_apply(layers[-1], x, mm_dtype)
     if x.shape[-1] == 1:
         x = x.squeeze(-1)

@@ -1,1 +1,2 @@
-"""Context extraction, gathers, SpMM and the fused PE+attention kernel."""
+"""Context extraction, masking, gathers and their scatter-add backward,
+SpMM and the fused PE+attention kernels."""

@@ -1,6 +1,5 @@
 """Per-link context-set extraction with static shapes (counterpart of
-``lpformer_tpu/ops/context.py``), in eval mode: no batch masking and no
-attention dropout, which come with the training slice.
+``lpformer_tpu/ops/context.py``), in eval and train mode.
 
 Semantics, as in the JAX package (reference file:line in its docstring):
 
@@ -14,6 +13,11 @@ Semantics, as in the JAX package (reference file:line in its docstring):
   * >1-hop ("all" mode, class 3): src's PPR support with ppr(tgt, v) > 0,
     outside both (unmasked) 1-hop neighbourhoods, both PPRs >=
     thresh_non1hop.
+  * Train mode: the batch's positive edges are masked out of both
+    adjacency rows in edge-rank space (``mask_ranks``, reference
+    train_model.py:38-45), and each candidate is kept with probability
+    1 - att_drop (attention dropout as context subsampling, reference
+    link_transformer.py:256-260) before the counts.
   * Structure counts are taken before any budget truncation.
 
 Only the combined class-tagged table (``budget_combined``) is ported: one
@@ -28,7 +32,10 @@ from typing import Optional
 import torch
 
 from lpformer_tpu_torch.graph.containers import PaddedRows
-from lpformer_tpu_torch.ops.search import row_contains, row_lookup_value
+from lpformer_tpu_torch.ops import masking
+from lpformer_tpu_torch.ops.search import (
+    row_contains, row_lookup_value, row_member_values,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,6 +44,7 @@ class ContextConfig:
     thresh_cn: float = 0.0
     thresh_1hop: float = 1e-2
     thresh_non1hop: float = 1e-2
+    att_drop: float = 0.0
     # one cross-class budget for the class-tagged table; None = the
     # classic per-class blocks (budget_cn / _onehop / _non1hop in the JAX
     # package), not ported yet
@@ -124,8 +132,14 @@ def extract_context(
     src: torch.Tensor,
     tgt: torch.Tensor,
     cfg: ContextConfig,
+    mask_ranks: Optional[torch.Tensor] = None,
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
 ) -> ContextTables:
-    """Eval-mode context extraction for the links (src[b], tgt[b])."""
+    """Context extraction for the links (src[b], tgt[b]). ``mask_ranks``
+    is the batch's masked-rank bitmap (``masking.batch_mask_ranks``);
+    with ``train`` and a generator ``gen`` on the tables' device, the
+    candidates are subsampled at ``cfg.att_drop``."""
     if cfg.budget_combined is None:
         raise NotImplementedError(
             "only the combined context table (budget_combined) is ported")
@@ -138,8 +152,24 @@ def extract_context(
     valid_a = a_n < n
     valid_b = b_n < n
 
-    a_in_tgt = row_contains(b_n, a_n)
-    b_in_src = row_contains(a_n, b_n)
+    if mask_ranks is None:
+        a_in_tgt = row_contains(b_n, a_n)
+        b_in_src = row_contains(a_n, b_n)
+    else:
+        ranks_a = adj_rows.ranks[src]   # rank of edge (src, v)
+        ranks_b = adj_rows.ranks[tgt]   # rank of edge (tgt, v)
+        hit_a = masking.rank_is_masked(mask_ranks, ranks_a)
+        hit_b = masking.rank_is_masked(mask_ranks, ranks_b)
+        valid_a &= ~hit_a
+        valid_b &= ~hit_b
+        # membership in the MASKED opposite row: found there, at an entry
+        # whose own edge is not masked (the JAX package remaps masked
+        # entries to the pad id first; a binary search needs the row
+        # sorted, so the hit flag rides along as a looked-up value)
+        f_a, (h_a,) = row_member_values(b_n, a_n, (hit_b,))
+        f_b, (h_b,) = row_member_values(a_n, b_n, (hit_a,))
+        a_in_tgt = f_a & ~h_a
+        b_in_src = f_b & ~h_b
     cn_a = valid_a & a_in_tgt                  # CNs, counted on src's row
     onehop_a = valid_a & ~a_in_tgt             # 1-hop via src only
     onehop_b = valid_b & ~b_in_src             # 1-hop via tgt only
@@ -169,6 +199,19 @@ def extract_context(
         thr_n1 = cfg.thresh_non1hop
         non1 = ((p_n < n) & (pt_n > 0.0) & ~in_a & ~in_b
                 & (ppr_s_vals >= thr_n1) & (pt_n >= thr_n1))
+
+    if train and cfg.att_drop > 0 and gen is not None:
+        keep = 1.0 - cfg.att_drop
+
+        def bern(x):
+            return torch.rand(x.shape, generator=gen, device=x.device) < keep
+
+        cn_a &= bern(cn_a)
+        if cfg.mask_mode != "cn":
+            onehop_a &= bern(onehop_a)
+            onehop_b &= bern(onehop_b)
+        if all_mode:
+            non1 &= bern(non1)
 
     num_cns = cn_a.sum(dim=1).float()
     zeros = torch.zeros_like(num_cns)

@@ -1,25 +1,64 @@
-"""Row gathers (counterpart of ``lpformer_tpu/ops/gather.py``), forward
-only in the eval slice.
+"""Row gathers with a structured backward (counterpart of
+``lpformer_tpu/ops/gather.py``).
 
-In the JAX package both functions are ``custom_vjp``s whose backward is
-the Pallas sorted scatter-add (``ops/pallas/scatter.py``); that backward,
-and the validity mask's use in it (dropping dead slots' rows), come with
-the training slice.
+Both gathers are ``torch.autograd.Function``s whose backward sums the
+cotangent rows into the table's rows, in float32, cast once to the table's
+dtype. The routing is the JAX package's, by size: from
+``_SCATTER_MIN_ROWS`` flattened rows up the sum is ``ops/scatter.py``
+(the hand-written CUDA kernel on a CUDA tensor, the counterpart of the
+Pallas scatter the JAX package takes on a TPU); below it, an f32
+``index_add_``, the counterpart of the JAX package's ``segment_sum``
+branch (XLA there, not Pallas). ``gather_rows_valid`` passes its validity
+mask to the scatter, which drops the dead rows: their cotangents are
+exactly zero by construction.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from lpformer_tpu_torch.ops import scatter
+
+# flattened-row threshold of the JAX package (ops/gather.py:27)
+_SCATTER_MIN_ROWS = 65536
+
+
+def _rows_sum(ids, ct, n, valid):
+    """sum of ct rows into their ids, f32 [n, D]."""
+    d = ct.shape[-1]
+    if ids.numel() >= _SCATTER_MIN_ROWS:
+        return scatter.scatter_rows_add(
+            ids.to(torch.int32).contiguous(), ct.contiguous(), n,
+            live=None if valid is None else valid.contiguous())
+    out = torch.zeros((n, d), dtype=torch.float32, device=ct.device)
+    return out.index_add_(0, ids.reshape(-1).long(),
+                          ct.reshape(-1, d).float())
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, ids, valid):
+        ctx.save_for_backward(ids, valid)
+        ctx.n = table.shape[0]
+        ctx.dtype = table.dtype
+        return table[ids.long()]
+
+    @staticmethod
+    def backward(ctx, ct):
+        ids, valid = ctx.saved_tensors
+        return _rows_sum(ids, ct, ctx.n, valid).to(ctx.dtype), None, None
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """table [N, D]; ids of any shape -> table[ids] [..., D]."""
-    return table[ids.long()]
+    return _GatherRows.apply(table, ids, None)
 
 
 def gather_rows_valid(
-    table: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor
+    table: torch.Tensor, ids: torch.Tensor, valid: Optional[torch.Tensor]
 ) -> torch.Tensor:
-    """``gather_rows`` for an id table with a validity mask. Invalid ids
-    must be in range; their rows are masked downstream."""
-    del valid  # read by the backward only
-    return table[ids.long()]
+    """``gather_rows`` for an id table with a validity mask [ids.shape]:
+    invalid ids must be in range, their rows are masked downstream, and
+    the backward drops their (zero) cotangents."""
+    return _GatherRows.apply(table, ids, valid)

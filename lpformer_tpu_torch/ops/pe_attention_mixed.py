@@ -1,5 +1,5 @@
 """Fused PE + per-link attention over the combined (class-tagged) context
-table, forward (counterpart of
+table, forward and backward (counterpart of
 ``lpformer_tpu/ops/pallas/pe_attention_mixed.py``).
 
 For each link b and each valid slot c, with k = ecls[b, c]:
@@ -9,11 +9,19 @@ For each link b and each valid slot c, with k = ecls[b, c]:
   s      = sum_o att[o] * leaky_relu_0.2(xj[o] * q[b,o])
   out[b] = sum_c softmax_c(s) xj + bias;  m[b], l[b] the softmax stats
 
-``fused_pe_link_attention_mixed`` launches the hand-written CUDA kernel
+``fused_pe_link_attention_mixed`` is a ``torch.autograd.Function``. Its
+forward launches the hand-written CUDA kernel
 ``csrc/pe_attention_mixed_fwd.cu`` on CUDA tensors (built with nvcc for
 sm_90a at first use, loaded with ctypes) and runs
 ``fused_pe_link_attention_mixed_plain``, the same math in torch ops over
-[B, C], on CPU tensors. There is no fallback between the two.
+[B, C], on CPU tensors. Its backward, from the saved m, l and out, is
+``fused_pe_link_attention_mixed_bwd``: the CUDA kernel
+``csrc/pe_attention_mixed_bwd.cu`` on CUDA tensors,
+``fused_pe_link_attention_mixed_bwd_plain`` on CPU tensors. There is no
+fallback between kernel and plain version. The caller side of the
+backward stays in torch as the JAX package's ``_fused_bwd`` has it:
+delta = g_out . (out - bias), dbias = sum_b g_out, and the packed
+layer-1 grad split back into w1[:, 0], w1[:, 1] and b1.
 """
 from __future__ import annotations
 
@@ -28,19 +36,26 @@ from lpformer_tpu_torch.utils.build import build_shared, find_nvcc
 
 _NEG = -1e30
 _LN_EPS = 1e-5
-_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "pe_attention_mixed_fwd.cu",
-)
+_CSRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+_SOURCE = os.path.join(_CSRC, "pe_attention_mixed_fwd.cu")
+_SOURCE_BWD = os.path.join(_CSRC, "pe_attention_mixed_bwd.cu")
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB = None
+_LIB_BWD = None
 
 
 def build() -> Tuple[str, str]:
-    """Compile the kernel (cached by source hash). Returns (library path,
-    compiler output, which holds ptxas's register and spill report)."""
+    """Compile the forward kernel (cached by source hash). Returns (library
+    path, compiler output, which holds ptxas's register and spill report)."""
     return build_shared("pe_attention_mixed_fwd", [_SOURCE],
+                        [find_nvcc()] + _NVCC_FLAGS)
+
+
+def build_bwd() -> Tuple[str, str]:
+    """Compile the backward kernels, as :func:`build`."""
+    return build_shared("pe_attention_mixed_bwd", [_SOURCE_BWD],
                         [find_nvcc()] + _NVCC_FLAGS)
 
 
@@ -55,6 +70,19 @@ def _load():
         lib.pe_attention_mixed_error_string.argtypes = [ctypes.c_int]
         _LIB = lib
     return _LIB
+
+
+def _load_bwd():
+    global _LIB_BWD
+    if _LIB_BWD is None:
+        lib = ctypes.CDLL(build_bwd()[0])
+        lib.pe_attention_mixed_bwd.restype = ctypes.c_int
+        lib.pe_attention_mixed_bwd.argtypes = (
+            [ctypes.c_void_p] * 25 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.pe_attention_mixed_bwd_error_string.restype = ctypes.c_char_p
+        lib.pe_attention_mixed_bwd_error_string.argtypes = [ctypes.c_int]
+        _LIB_BWD = lib
+    return _LIB_BWD
 
 
 def fused_pe_link_attention_mixed_plain(
@@ -96,9 +124,14 @@ def fused_pe_link_attention_mixed_plain(
 
 
 def _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
-           bias):
+           bias=None, **extra):
+    """Dtypes, shapes, devices, contiguity and alignment the kernels take;
+    ``bias`` is the forward's, ``extra`` holds the backward's further f32
+    inputs by name (g_out [B, O], m, l, delta [B])."""
     bsz, c, o = keys.shape
     k, _, dh = w1.shape
+    per_link = {"g_out": (bsz, o), "m": (bsz,), "l": (bsz,),
+                "delta": (bsz,)}
     want = {
         "keys": (keys, keys.dtype, (bsz, c, o)),
         "ps": (ps, torch.float32, (bsz, c)),
@@ -113,8 +146,11 @@ def _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
         "w2f": (w2f, keys.dtype, (k, dh, o)),
         "cbias": (cbias, torch.float32, (k, o)),
         "att": (att, torch.float32, (1, o)),
-        "bias": (bias, torch.float32, (o,)),
     }
+    if bias is not None:
+        want["bias"] = (bias, torch.float32, (o,))
+    for name, t in extra.items():
+        want[name] = (t, torch.float32, per_link[name])
     if keys.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"keys must be bfloat16 or float32, got {keys.dtype}")
     for name, (t, dtype, shape) in want.items():
@@ -134,25 +170,11 @@ def _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
                          f"got O={o}, dh={dh}")
 
 
-def fused_pe_link_attention_mixed(
-    keys: torch.Tensor,    # [B, C, O] bf16/f32 gathered X_node @ W_r[:d] rows
-    ps: torch.Tensor,      # [B, C] f32 ppr(src, v)
-    pt: torch.Tensor,      # [B, C] f32 ppr(tgt, v)
-    valid: torch.Tensor,   # [B, C] bool
-    ecls: torch.Tensor,    # [B, C] int32 encoder index in [0, K)
-    q: torch.Tensor,       # [B, O] f32 lin_l(x_a) + lin_l(x_b)
-    w1: torch.Tensor,      # [K, 2, dh] per-class PPR-encoder layer 1
-    b1: torch.Tensor,      # [K, dh]
-    g: torch.Tensor,       # [K, dh] LayerNorm gain
-    b: torch.Tensor,       # [K, dh] LayerNorm bias
-    w2f: torch.Tensor,     # [K, dh, O] W2_k @ W_r[d:], keys' dtype
-    cbias: torch.Tensor,   # [K, O] 2 * b2_k @ W_r[d:] + lin_r bias
-    att: torch.Tensor,     # [1, O]
-    bias: torch.Tensor,    # [O]
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(out [B, O] f32, m [B], l [B]). CUDA tensors launch the kernel
-    (``fused_pe_link_attention_mixed.launches`` counts the launches); CPU
-    tensors run the plain version."""
+def _fwd(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, bias
+         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out, m, l): the CUDA kernel on CUDA tensors, the plain version on
+    CPU tensors. Counts its launches in
+    ``fused_pe_link_attention_mixed.launches``."""
     args = (keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, bias)
     if keys.device.type == "cpu":
         return fused_pe_link_attention_mixed_plain(*args)
@@ -176,6 +198,196 @@ def fused_pe_link_attention_mixed(
             + lib.pe_attention_mixed_error_string(err).decode())
     fused_pe_link_attention_mixed.launches += 1
     return out, m, l
+
+
+def fused_pe_link_attention_mixed_bwd_plain(
+    keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, m, l,
+    g_out, delta,
+):
+    """The backward kernel's math in torch ops over [B, C], with the TPU
+    kernel's rounding points: each direction's hidden activation hk and
+    the key cotangent dxjc are rounded to w2f's dtype, and dw2 = sum
+    hk^T dxjc and dh = dxjc W2f^T use the rounded values; everything else
+    is f32. Returns (dkeys [B, C, O] keys' dtype, dq [B, O], dw1cat
+    [3K, dh] rows (w1a_k | w1b_k | b1_k), dg [K, dh], db [K, dh],
+    dw2 [K, dh, O] f32, dcb [K, O], datt [1, O])."""
+    kdt = w2f.dtype
+    k_n, _, dh = w1.shape
+    o = keys.shape[-1]
+    e = ecls.long()
+    w1s, b1s, gs, bs = w1[e], b1[e], g[e], b[e]          # [B, C, (2,) dh]
+
+    def direction(x0, x1):
+        pre = (x0[..., None] * w1s[..., 0, :] + x1[..., None] * w1s[..., 1, :]
+               + b1s)
+        mu = pre.mean(-1, keepdim=True)
+        xc = pre - mu
+        var = (xc * xc).mean(-1, keepdim=True)
+        r = torch.rsqrt(var + _LN_EPS)
+        xhat = xc * r
+        y = xhat * gs + bs
+        return xhat, r, y, torch.relu(y).to(kdt).float()
+
+    xa, ra, ya, ha = direction(ps, pt)
+    xb, rb, yb, hb = direction(pt, ps)
+    w2 = w2f.float()
+    classes = [e == k for k in range(k_n)]
+    pe = torch.zeros(keys.shape, dtype=torch.float32, device=keys.device)
+    for k, sel in enumerate(classes):
+        pe[sel] = ha[sel] @ w2[k] + hb[sel] @ w2[k]
+    xj = keys.float() + pe + cbias[e]                          # [B, C, O]
+    pre2 = xj * q[:, None, :]
+    z = torch.where(pre2 >= 0, pre2, 0.2 * pre2)
+    arow = att.reshape(1, 1, -1)
+    s = (z * arow).sum(-1)
+    masked = torch.where(valid, s, torch.full_like(s, _NEG))
+    alpha = (torch.exp(masked - m[:, None]) / l.clamp_min(1e-16)[:, None]
+             * valid)
+    galpha = (g_out[:, None, :] * xj).sum(-1)
+    dlog = alpha * (galpha - delta[:, None])                   # [B, C]
+    datt = (dlog[..., None] * z).sum((0, 1)).reshape(att.shape)
+    dpre2 = dlog[..., None] * torch.where(pre2 >= 0, 1.0, 0.2) * arow
+    dxj = alpha[..., None] * g_out[:, None, :] + dpre2 * q[:, None, :]
+    dq = (dpre2 * xj).sum(1)
+    dxc = dxj.to(kdt).float()
+
+    def by_class(x):        # sum of [B, C, W] rows per class -> [K, W]
+        out = torch.zeros((k_n, x.shape[-1]), dtype=torch.float32,
+                          device=x.device)
+        return out.index_add_(0, e.reshape(-1), x.reshape(-1, x.shape[-1]))
+
+    dcb = by_class(dxj)
+    dw2 = torch.zeros((k_n, dh, o), dtype=torch.float32, device=keys.device)
+    dhh = torch.zeros(ha.shape, dtype=torch.float32, device=keys.device)
+    for k, sel in enumerate(classes):
+        dxk = dxc[sel]
+        dw2[k] = ha[sel].T @ dxk + hb[sel].T @ dxk
+        dhh[sel] = dxk @ w2[k].T
+    dya = dhh * (ya > 0)
+    dyb = dhh * (yb > 0)
+    dg = by_class(dya * xa + dyb * xb)
+    db = by_class(dya + dyb)
+
+    def ln_bwd(dy, xhat, r):
+        dxh = dy * gs
+        return r * (dxh - dxh.mean(-1, keepdim=True)
+                    - xhat * (dxh * xhat).mean(-1, keepdim=True))
+
+    dpa, dpb = ln_bwd(dya, xa, ra), ln_bwd(dyb, xb, rb)
+    p0, p1 = ps[..., None], pt[..., None]
+    dw1cat = torch.cat([by_class(p0 * dpa + p1 * dpb),
+                        by_class(p1 * dpa + p0 * dpb),
+                        by_class(dpa + dpb)], dim=0)
+    return dxj.to(keys.dtype), dq, dw1cat, dg, db, dw2, dcb, datt
+
+
+def fused_pe_link_attention_mixed_bwd(
+    keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, m, l,
+    g_out, delta,
+):
+    """The backward of the fused op, as the plain version returns it. CUDA
+    tensors launch the kernel (``fused_pe_link_attention_mixed_bwd
+    .launches`` counts the launches); CPU tensors run the plain version."""
+    args = (keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, m,
+            l, g_out, delta)
+    if keys.device.type == "cpu":
+        return fused_pe_link_attention_mixed_bwd_plain(*args)
+    _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
+           g_out=g_out, m=m, l=l, delta=delta)
+    bsz, c, o = keys.shape
+    k, _, dh = w1.shape
+    dev = keys.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    dkeys = torch.empty(keys.shape, dtype=keys.dtype, device=dev)
+    dq = torch.empty((bsz, o), **f32)
+    dw1cat = torch.zeros((3 * k, dh), **f32)
+    dg = torch.zeros((k, dh), **f32)
+    db = torch.zeros((k, dh), **f32)
+    dw2 = torch.zeros((k, dh, o), **f32)
+    dcb = torch.zeros((k, o), **f32)
+    datt = torch.zeros(att.shape, **f32)
+    lib = _load_bwd()
+    with torch.cuda.device(dev):
+        err = lib.pe_attention_mixed_bwd(
+            keys.data_ptr(), ps.data_ptr(), pt.data_ptr(), valid.data_ptr(),
+            ecls.data_ptr(), q.data_ptr(), g_out.data_ptr(), m.data_ptr(),
+            l.data_ptr(), delta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            g.data_ptr(), b.data_ptr(), w2f.data_ptr(), cbias.data_ptr(),
+            att.data_ptr(), dkeys.data_ptr(), dq.data_ptr(),
+            dw1cat.data_ptr(), dg.data_ptr(), db.data_ptr(), dcb.data_ptr(),
+            datt.data_ptr(), dw2.data_ptr(), bsz, c, o, dh, k,
+            int(keys.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            "pe_attention_mixed_bwd launch failed: "
+            + lib.pe_attention_mixed_bwd_error_string(err).decode())
+    fused_pe_link_attention_mixed_bwd.launches += 1
+    return dkeys, dq, dw1cat, dg, db, dw2, dcb, datt
+
+
+fused_pe_link_attention_mixed_bwd.launches = 0
+
+
+class MixedOp(torch.autograd.Function):
+    """The differentiable op over a (forward, backward) pair of
+    implementations: ``fused_pe_link_attention_mixed`` passes the kernel
+    wrappers. Returns (out, m, l); m and l carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, fwd, bwd, keys, ps, pt, valid, ecls, q, w1, b1, g, b,
+                w2f, cbias, att, bias):
+        args = (keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
+                bias)
+        out, m, l = fwd(*args)
+        ctx.bwd = bwd
+        ctx.save_for_backward(*args, m, l, out)
+        ctx.mark_non_differentiable(m, l)
+        return out, m, l
+
+    @staticmethod
+    def backward(ctx, g_out, _dm, _dl):
+        (keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, bias,
+         m, l, out) = ctx.saved_tensors
+        g_out = g_out.float().contiguous()
+        if g_out.data_ptr() % 16:      # the kernel reads 16-byte vectors
+            g_out = g_out.clone()
+        delta = (g_out * (out - bias)).sum(-1)
+        dkeys, dq, dw1cat, dg, db, dw2, dcb, datt = ctx.bwd(
+            keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, m,
+            l, g_out, delta)
+        k = w1.shape[0]
+        dw1 = torch.stack([dw1cat[:k], dw1cat[k:2 * k]], dim=1)
+        return (None, None, dkeys, None, None, None, None, dq, dw1,
+                dw1cat[2 * k:], dg, db, dw2.to(w2f.dtype), dcb, datt,
+                g_out.sum(0))
+
+
+def fused_pe_link_attention_mixed(
+    keys: torch.Tensor,    # [B, C, O] bf16/f32 gathered X_node @ W_r[:d] rows
+    ps: torch.Tensor,      # [B, C] f32 ppr(src, v)
+    pt: torch.Tensor,      # [B, C] f32 ppr(tgt, v)
+    valid: torch.Tensor,   # [B, C] bool
+    ecls: torch.Tensor,    # [B, C] int32 encoder index in [0, K)
+    q: torch.Tensor,       # [B, O] f32 lin_l(x_a) + lin_l(x_b)
+    w1: torch.Tensor,      # [K, 2, dh] per-class PPR-encoder layer 1
+    b1: torch.Tensor,      # [K, dh]
+    g: torch.Tensor,       # [K, dh] LayerNorm gain
+    b: torch.Tensor,       # [K, dh] LayerNorm bias
+    w2f: torch.Tensor,     # [K, dh, O] W2_k @ W_r[d:], keys' dtype
+    cbias: torch.Tensor,   # [K, O] 2 * b2_k @ W_r[d:] + lin_r bias
+    att: torch.Tensor,     # [1, O]
+    bias: torch.Tensor,    # [O]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(out [B, O] f32, m [B], l [B]), differentiable in every float input
+    but ps and pt (whose grads the JAX package returns as zeros). CUDA
+    tensors launch the kernels (``.launches`` on this function counts the
+    forward's, on ``fused_pe_link_attention_mixed_bwd`` the backward's);
+    CPU tensors run the plain versions."""
+    return MixedOp.apply(_fwd, fused_pe_link_attention_mixed_bwd, keys, ps,
+                         pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
+                         bias)
 
 
 fused_pe_link_attention_mixed.launches = 0

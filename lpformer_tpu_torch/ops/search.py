@@ -46,6 +46,14 @@ def row_contains(rows: torch.Tensor, queries: torch.Tensor) -> torch.Tensor:
     return found
 
 
+def row_lookup(
+    rows: torch.Tensor, vals: torch.Tensor, queries: torch.Tensor, default
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(found, value-or-default) for each query."""
+    found, (v,) = row_member_values(rows, queries, (vals,), (default,))
+    return found, v
+
+
 def row_lookup_value(
     rows: torch.Tensor, vals: torch.Tensor, queries: torch.Tensor
 ) -> torch.Tensor:

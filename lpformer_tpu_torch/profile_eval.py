@@ -17,11 +17,7 @@ Needs a CUDA card.
 """
 from __future__ import annotations
 
-import time
-
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 from lpformer_tpu_torch import resolve_device
 from lpformer_tpu_torch.data.synthetic import synthetic_dataset
@@ -32,7 +28,7 @@ from lpformer_tpu_torch.presets import (
     COLLAB_LIKE_BATCH, COLLAB_LIKE_CONFIG, COLLAB_LIKE_DATA,
 )
 from lpformer_tpu_torch.utils.measure import (
-    device_kernel_ms, kernel_bound_ms, kernel_inputs, time_ms,
+    device_kernel_ms, kernel_bound_ms, kernel_inputs, time_ms, trace_device,
 )
 
 
@@ -57,22 +53,13 @@ def main(top: int = 12) -> None:
     params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
                               in_dim=COLLAB_LIKE_DATA["feat_dim"], device=dev)
     harness.test_standard(params, cfg, ds, batch_size=COLLAB_LIKE_BATCH)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        t0 = time.perf_counter()
-        harness.test_standard(params, cfg, ds, batch_size=COLLAB_LIKE_BATCH)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    # device-side rows only: a CPU op's row repeats its kernels' time
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    wall_ms, busy_ms, rows = trace_device(
+        lambda: harness.test_standard(params, cfg, ds,
+                                      batch_size=COLLAB_LIKE_BATCH), top)
     print(f"test_standard sweep (traced): wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f} [{card}]")
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    for e in rows[:top]:
-        print(f"  {e.self_device_time_total / 1e3:9.3f} ms  {e.count:5d}x  "
-              f"{e.key[:100]}")
+    for ms, count, name in rows:
+        print(f"  {ms:9.3f} ms  {count:5d}x  {name[:100]}")
 
 
 if __name__ == "__main__":

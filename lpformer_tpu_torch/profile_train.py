@@ -1,0 +1,68 @@
+"""Where a training step's time goes on the card, from a torch.profiler
+trace.
+
+    python -m lpformer_tpu_torch.profile_train [steps]
+
+Builds the collab-like dataset (presets.py), takes two warm-up training
+steps of batch 4096 with the default dropouts, then traces ``steps``
+(default 5) more: wall time per step, device busy time per step (the CUDA
+kernels' self time), the device idle share, and the kernels that take the
+most device time, with their launch counts. The profiler's own host
+overhead is inside the wall time, so the idle share is an upper bound.
+
+Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+
+from lpformer_tpu_torch import resolve_device
+from lpformer_tpu_torch.data.synthetic import synthetic_dataset
+from lpformer_tpu_torch.models import link_transformer as lt
+from lpformer_tpu_torch.presets import (
+    COLLAB_LIKE_BATCH, COLLAB_LIKE_CONFIG, COLLAB_LIKE_DATA,
+)
+from lpformer_tpu_torch.train import optim, step as step_mod
+from lpformer_tpu_torch.utils.measure import trace_device
+
+
+def main(steps: int = 5, top: int = 15) -> None:
+    dev = resolve_device()
+    card = torch.cuda.get_device_name(0)
+    cfg, batch = COLLAB_LIKE_CONFIG, COLLAB_LIKE_BATCH
+    ds = synthetic_dataset(**COLLAB_LIKE_DATA, device=dev)
+    params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
+                              in_dim=COLLAB_LIKE_DATA["feat_dim"], device=dev)
+    for p in optim.tree_leaves(params):
+        p.requires_grad_(True)
+    opt = optim.make_optimizer(1e-3, steps_per_epoch=98)
+    state = step_mod.TrainState(params, opt.init(params), 0)
+    train_step = step_mod.make_train_step(cfg, opt)
+    mult = ds.mask_mult_device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    order = np.random.default_rng(0).permutation(len(ds.train_pos))
+    links = torch.as_tensor(ds.train_pos[order]).to(dev)
+    w = torch.ones(batch, device=dev)
+
+    def run(lo, n):
+        nonlocal state
+        for i in range(lo, lo + n):
+            b = links[i * batch:(i + 1) * batch]
+            state, _ = train_step(state, ds.graph, mult, b[:, 0], b[:, 1], w,
+                                  gen)
+
+    run(0, 2)
+    wall_ms, busy_ms, rows = trace_device(lambda: run(2, steps), top)
+    print(f"{steps} training steps of {batch} (traced): wall "
+          f"{wall_ms / steps:.3f} ms/step, device busy {busy_ms / steps:.3f} "
+          f"ms/step, idle share {1 - busy_ms / wall_ms:.3f} [{card}]")
+    for ms, count, name in rows:
+        print(f"  {ms / steps:9.3f} ms/step  {count / steps:6.1f}x/step  "
+              f"{name[:100]}")
+
+
+if __name__ == "__main__":
+    main(*(int(a) for a in sys.argv[1:]))

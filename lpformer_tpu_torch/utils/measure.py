@@ -1,11 +1,13 @@
-"""Measuring helpers for the card: CUDA-event timing, the fused kernel's
-test inputs at the main-path shape, and its roofline bound.
+"""Measuring helpers for the card: CUDA-event timing, the kernels' test
+inputs at the main-path shape, and their roofline bounds.
 
-Used by chip_smoke.py and ``python -m lpformer_tpu_torch.profile_eval``.
+Used by chip_smoke.py, ``python -m lpformer_tpu_torch.profile_eval`` and
+``python -m lpformer_tpu_torch.profile_train``.
 """
 from __future__ import annotations
 
 import statistics
+import time
 
 import torch
 from torch.autograd import DeviceType
@@ -18,6 +20,9 @@ F32_FLOPS = 67e12
 
 # the main-path shape of the fused PE+attention kernel (collab-like)
 B, C, O, DH, K = 4096, 128, 128, 128, 3
+# rows of the context-key table the scatter-add sums into (50,000 nodes
+# and the zero pad row)
+N_ROWS = 50_001
 
 
 def time_ms(fn, reps: int, per: int = 1, warmup: int = 2) -> float:
@@ -56,6 +61,26 @@ def device_kernel_ms(fn, name: str, calls: int = 10) -> float:
     if n == 0:
         raise RuntimeError(f"the trace holds no device kernel named {name}")
     return sum(e.self_device_time_total for e in rows) / 1e3 / n
+
+
+def trace_device(fn, top: int = 12):
+    """Run ``fn`` once under torch.profiler and return (wall ms, device
+    busy ms, the ``top`` device kernels as (ms, count, name)). Busy is the
+    sum of the CUDA kernels' self time (device rows only: a CPU op's row
+    repeats its kernels' time); the profiler's own host overhead is inside
+    the wall time, so 1 - busy / wall, the idle share, is an upper bound."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    return wall_ms, busy_ms, [(e.self_device_time_total / 1e3, e.count, e.key)
+                              for e in rows[:top]]
 
 
 def kernel_inputs(dev, dtype, seed=0, b=B, c=C, o=O, dh=DH, k=K):
@@ -103,8 +128,87 @@ def kernel_bound_ms(a):
     nbytes = (b * c + 4 * b * o + nv * (o * kb + 12)
               + 4 * k * dh * 5 + kb * k * dh * o + 4 * (k * o + 2 * o)
               + 4 * b * o + 8 * b)
+    return _bound(nbytes, nv * 2 * dh * o, nv * (12 * dh + 8 * o), kb) + (
+        nv,)
+
+
+def _bound(nbytes, mm_flops, f32_flops, kb):
+    """(ms, "bytes" or "operations"): the larger of the bytes over HBM
+    bandwidth and the operations over their peak rates (matrix products at
+    the bf16 tensor rate when their inputs are bf16)."""
     mm_rate = BF16_TENSOR_FLOPS if kb == 2 else F32_FLOPS
-    t_ops = nv * (2 * dh * o / mm_rate + (12 * dh + 8 * o) / F32_FLOPS)
+    t_ops = mm_flops / mm_rate + f32_flops / F32_FLOPS
     t_bytes = nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_bytes, t_ops),
-            "bytes" if t_bytes >= t_ops else "operations", nv)
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bwd_inputs(a, seed=1):
+    """The backward's further inputs for the forward inputs ``a``: a
+    cotangent g_out [B, O] drawn from ``seed`` and the forward's m, l and
+    delta = g_out . (out - bias), from the plain forward on a's device."""
+    from lpformer_tpu_torch.ops.pe_attention_mixed import (
+        fused_pe_link_attention_mixed_plain,
+    )
+
+    out, m, l = fused_pe_link_attention_mixed_plain(**a)
+    g = torch.Generator().manual_seed(seed)
+    g_out = (0.1 * torch.randn(out.shape, generator=g)).to(out.device)
+    delta = (g_out * (out - a["bias"])).sum(-1)
+    fwd = {k: v for k, v in a.items() if k != "bias"}
+    return dict(fwd, m=m, l=l, g_out=g_out, delta=delta)
+
+
+def bwd_bound_ms(a):
+    """Least time for fused_pe_link_attention_mixed_bwd on the inputs ``a``
+    (``bwd_inputs``): bytes of the valid mask, q, g_out, m, l, delta and
+    the weights once, per valid slot its key row, ps, pt and class, and
+    the outputs once: all of dkeys [B, C, O] (dead slots are zero rows),
+    dq and the weight grads. Operations per valid slot: three dh x O
+    products (the W2f product of the recomputed forward, dh = dxjc
+    W2f^T and the dw2 outer product) at the tensor rate of the weights'
+    dtype, and ~(40 dh + 30 O) f32 operations for the rest. Returns (ms,
+    "bytes" or "operations", valid slots)."""
+    b, c, o = a["keys"].shape
+    k, _, dh = a["w1"].shape
+    nv = int(a["valid"].sum())
+    kb = a["keys"].element_size()
+    inputs = (b * c + 2 * 4 * b * o + 3 * 4 * b + nv * (o * kb + 12)
+              + 4 * k * dh * 5 + kb * k * dh * o + 4 * (k * o + o))
+    outputs = (b * c * o * kb + 4 * b * o + 4 * k * dh * 5
+               + 4 * k * dh * o + 4 * (k * o + o))
+    return _bound(inputs + outputs, nv * 3 * 2 * dh * o,
+                  nv * (40 * dh + 30 * o), kb) + (nv,)
+
+
+def scatter_inputs(dev, seed=0, b=B, c=C, d=O, n=N_ROWS):
+    """Inputs of scatter_rows_add at the main-path shape: the [B, C]
+    context-key cotangent in bf16, live where kernel_inputs' validity is
+    (front-compacted, ~8% of the slots), ids of the live rows drawn with
+    weight rank^-0.8 over the n - 1 real rows (the synthetic graph's
+    degree law, so hub rows take many adds), dead rows on the pad row
+    n - 1 with zero cotangents. Returns (ids [B, C] int32, ct [B, C, d]
+    bf16, n, live [B, C] bool)."""
+    import numpy as np
+
+    live = kernel_inputs("cpu", torch.float32, seed=seed, b=b, c=c, o=4,
+                         dh=4, k=1)["valid"]
+    rng = np.random.default_rng(seed)
+    w = np.arange(1, n, dtype=np.float64) ** -0.8
+    ids = rng.choice(n - 1, size=(b, c), p=w / w.sum()).astype(np.int32)
+    ids = torch.where(live, torch.as_tensor(ids), n - 1).to(torch.int32)
+    g = torch.Generator().manual_seed(seed)
+    ct = (torch.randn(b, c, d, generator=g) * live[..., None]).to(
+        torch.bfloat16)
+    return ids.to(dev), ct.to(dev), n, live.to(dev)
+
+
+def scatter_bound_ms(ids, ct, n, live):
+    """Least time for scatter_rows_add: the ids and live mask of every row,
+    the ct row of every live row and the [n, D] f32 output once; one f32
+    add per live element. Returns (ms, "bytes" or "operations", live
+    rows)."""
+    d = ct.shape[-1]
+    nl = int(live.sum())
+    nbytes = 5 * ids.numel() + nl * d * ct.element_size() + 4 * n * d
+    return _bound(nbytes, 0, nl * d, 4) + (nl,)

@@ -33,3 +33,17 @@ def from_jax_params(tree, device=None):
         return torch.as_tensor(np.array(node)).to(dev)
 
     return walk(tree)
+
+
+def from_jax_opt_state(state, device=None):
+    """Port the JAX package's fused-Adam state (``train/optim.py:95-100``,
+    ``{count, m, v, score_mask}`` with m, v and score_mask flat over the
+    parameters in ``ravel_pytree`` order) after ``jax.tree.map(np.asarray,
+    state)``: the port's fused optimizer flattens in the same order, so the
+    vectors carry over as they are."""
+    dev = resolve_device(device)
+    out = {k: torch.as_tensor(np.array(state[k])).to(dev)
+           for k in ("m", "v", "score_mask")}
+    out["count"] = torch.as_tensor(np.array(state["count"]),
+                                   dtype=torch.int32).to(dev)
+    return out

@@ -58,6 +58,7 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
     from lpformer_tpu_torch.data.synthetic import synthetic_dataset
     from lpformer_tpu_torch.models import link_transformer as lt
     from lpformer_tpu_torch.models.config import LPFormerConfig
+    from lpformer_tpu_torch.utils.params import from_jax_opt_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no GPU"):
@@ -67,4 +68,7 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
                          LPFormerConfig(budget_combined=8), 4)
     with pytest.raises(RuntimeError, match="no GPU"):
         synthetic_dataset(num_nodes=20, num_train=40, num_eval=4)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        from_jax_opt_state({"count": 0, "m": [0.0], "v": [0.0],
+                            "score_mask": [0.0]})
     assert resolve_device("cpu") == torch.device("cpu")
