@@ -40,9 +40,13 @@ class LPFormerConfig:
     # (nn/core.py:matmul), and the context key tables are bf16
     matmul_dtype: str = "float32"
 
-    # combined class-tagged context table; the classic per-class blocks
-    # (None, with the JAX package's budget_cn/_onehop/_non1hop) are not
-    # ported yet
+    # static per-class context budgets: the widths of the classic table's
+    # class blocks [cn | 1-hop | >1-hop]
+    budget_cn: int = 128
+    budget_onehop: int = 256
+    budget_non1hop: int = 128
+    # combined class-tagged context table: one cross-class budget replacing
+    # the per-class blocks. None = the classic per-class blocks
     budget_combined: "int | None" = None
 
     @property
@@ -59,6 +63,9 @@ class LPFormerConfig:
             thresh_cn=self.thresh_cn,
             thresh_1hop=self.thresh_1hop,
             thresh_non1hop=self.thresh_non1hop,
+            budget_cn=self.budget_cn,
+            budget_onehop=self.budget_onehop,
+            budget_non1hop=self.budget_non1hop,
             att_drop=self.att_drop,
             budget_combined=self.budget_combined,
         )

@@ -7,14 +7,18 @@
 The attention is GATv2-style over each link's context set, with
 symmetrised PPR positional encodings per node class (reference:
 src/models/link_transformer.py:132-211, src/modules/layers.py:193-224).
-It runs as ONE fused op over the combined class-tagged context table:
-``ops/pe_attention_mixed.py``, the hand-written CUDA kernel on a CUDA
-tensor, its plain torch version on a CPU tensor (the counterpart of the
-JAX package's Pallas kernel, which it switches on by itself on a TPU).
+It runs as ONE fused op over the context table, a hand-written CUDA
+kernel on a CUDA tensor and its plain torch version on a CPU tensor (the
+counterparts of the JAX package's Pallas kernels, which it switches on by
+itself on a TPU):
+
+  * the classic class-blocked table (``budget_combined=None``, the
+    default): ``ops/pe_attention.py``, with the blocks' widths;
+  * the combined class-tagged table: ``ops/pe_attention_mixed.py``, with
+    a per-slot encoder index.
 
 Parameters are the JAX package's pytree as nested dicts of tensors
-(``utils/params.py``). The classic per-class context table
-(``budget_combined=None``) and ``num_heads > 1`` are not ported yet.
+(``utils/params.py``). ``num_heads > 1`` is not ported yet.
 
 Training (``train=True``) adds the reference's dropouts, drawn in a fixed
 order from one ``torch.Generator`` on the model's device: feat_drop on the
@@ -36,6 +40,7 @@ from lpformer_tpu_torch.models.gcn import gcn_apply, gcn_init
 from lpformer_tpu_torch.nn import core as nn
 from lpformer_tpu_torch.ops.context import ContextTables, extract_context
 from lpformer_tpu_torch.ops.gather import gather_rows, gather_rows_valid
+from lpformer_tpu_torch.ops.pe_attention import fused_pe_link_attention
 from lpformer_tpu_torch.ops.pe_attention_mixed import (
     fused_pe_link_attention_mixed,
 )
@@ -128,9 +133,10 @@ def _att_layer_apply(
     MLPs' last linear is folded into W_r's PE half here (w2f = W2 @
     W_r[d:], cbias = 2 b2 @ W_r[d:] + b_r), in plain torch, so the op's
     stacked-weight grads flow back to the true parameter leaves and its PE
-    lands directly in the projected key space; ``ecls`` maps the context
-    class codes to encoder indices 0..K-1. Post-LayerNorm, then dropout
-    (reference layers.py:78-80)."""
+    lands directly in the projected key space. The classic table passes
+    its class blocks' widths; on the combined table ``ecls`` maps the
+    context class codes to encoder indices 0..K-1. Post-LayerNorm, then
+    dropout (reference layers.py:78-80)."""
     half = edge_x.shape[-1] // 2
     e1 = nn.linear_apply(lp["lin_l"], edge_x[:, :half], cfg.mm_dtype)
     e2 = nn.linear_apply(lp["lin_l"], edge_x[:, half:], cfg.mm_dtype)
@@ -141,8 +147,7 @@ def _att_layer_apply(
     if r_bias is None:
         r_bias = torch.zeros(w_fold.shape[1], device=w_fold.device)
     w1, b1, g_ln, b_ln, w2f, cbias = [], [], [], [], [], []
-    ecls = torch.zeros_like(ctx.cls)
-    for k, (name, code) in enumerate(_encoder_codes(cfg)):
+    for name, _ in _encoder_codes(cfg):
         mp = params[name]
         l1, l2 = mp["layers"]
         w1.append(l1["w"].float())
@@ -151,13 +156,20 @@ def _att_layer_apply(
         b_ln.append(mp["norm"]["b"].float())
         w2f.append(l2["w"].float() @ w_fold)
         cbias.append(2.0 * (l2["b"].float() @ w_fold) + r_bias)
-        ecls = torch.where(ctx.cls == code, k, ecls)
-    out, _, _ = fused_pe_link_attention_mixed(
-        xj_node, ctx.src_ppr, ctx.tgt_ppr, ctx.valid, ecls, e1 + e2,
-        torch.stack(w1), torch.stack(b1), torch.stack(g_ln), torch.stack(b_ln),
-        torch.stack(w2f).to(xj_node.dtype), torch.stack(cbias),
-        lp["att"], lp["bias"],
-    )
+    weights = (torch.stack(w1), torch.stack(b1), torch.stack(g_ln),
+               torch.stack(b_ln), torch.stack(w2f).to(xj_node.dtype),
+               torch.stack(cbias), lp["att"], lp["bias"])
+    if cfg.budget_combined is None:
+        out, _, _ = fused_pe_link_attention(
+            xj_node, ctx.src_ppr, ctx.tgt_ppr, ctx.valid, e1 + e2, *weights,
+            class_widths=cfg.context.class_budgets)
+    else:
+        ecls = torch.zeros_like(ctx.cls)
+        for k, (_, code) in enumerate(_encoder_codes(cfg)):
+            ecls = torch.where(ctx.cls == code, k, ecls)
+        out, _, _ = fused_pe_link_attention_mixed(
+            xj_node, ctx.src_ppr, ctx.tgt_ppr, ctx.valid, ecls, e1 + e2,
+            *weights)
     out = nn.layer_norm_apply(lp["post_norm"], out)
     return nn.dropout(gen, out, cfg.dropout, train)
 
@@ -171,9 +183,6 @@ def calc_pairwise(
     (reference: link_transformer.py:132-178)."""
     if cfg.num_heads != 1:
         raise NotImplementedError("num_heads > 1 is not ported yet")
-    if cfg.budget_combined is None:
-        raise NotImplementedError(
-            "the classic per-class context table is not ported yet")
     feats = torch.cat([gather_rows(X_node, src), gather_rows(X_node, tgt)],
                       dim=-1)
     d = X_node.shape[-1]

@@ -20,9 +20,15 @@ Semantics, as in the JAX package (reference file:line in its docstring):
     link_transformer.py:256-260) before the counts.
   * Structure counts are taken before any budget truncation.
 
-Only the combined class-tagged table (``budget_combined``) is ported: one
-compaction of the class-disjoint candidate segments, keeping on overflow
-the entries with the largest ppr_s + ppr_t, ties toward the earlier entry.
+Then compaction to static widths, keeping on overflow the entries with
+the largest ppr_s + ppr_t, ties toward the earlier entry:
+
+  * classic table (``budget_combined`` None, the JAX package's default):
+    each class compacts into its own block, [cn | 1-hop | >1-hop] of
+    widths budget_cn, budget_onehop, budget_non1hop (the blocks of the
+    active classes only); overflow is the sum of the classes' drops;
+  * combined table (``budget_combined``): one compaction of the
+    class-disjoint candidate segments into one cross-class budget.
 """
 from __future__ import annotations
 
@@ -44,10 +50,12 @@ class ContextConfig:
     thresh_cn: float = 0.0
     thresh_1hop: float = 1e-2
     thresh_non1hop: float = 1e-2
+    budget_cn: int = 128
+    budget_onehop: int = 256
+    budget_non1hop: int = 128
     att_drop: float = 0.0
     # one cross-class budget for the class-tagged table; None = the
-    # classic per-class blocks (budget_cn / _onehop / _non1hop in the JAX
-    # package), not ported yet
+    # classic per-class blocks of the three budgets above
     budget_combined: Optional[int] = None
 
     @staticmethod
@@ -68,13 +76,29 @@ class ContextConfig:
         )
 
     @property
+    def class_budgets(self) -> tuple:
+        """The classic table's block widths, active classes only, in the
+        order [cn, 1-hop, >1-hop]."""
+        return {"cn": (self.budget_cn,),
+                "1-hop": (self.budget_cn, self.budget_onehop),
+                "all": (self.budget_cn, self.budget_onehop,
+                        self.budget_non1hop)}[self.mask_mode]
+
+    @property
+    def total_budget(self) -> int:
+        if self.budget_combined is not None:
+            return self.budget_combined
+        return sum(self.class_budgets)
+
+    @property
     def count_dim(self) -> int:
         return {"cn": 1, "1-hop": 3, "all": 4}[self.mask_mode]
 
 
 @dataclasses.dataclass(frozen=True)
 class ContextTables:
-    """Compacted per-link context table."""
+    """Compacted per-link context table; the classic layout is
+    class-blocked along axis 1 in the order [cn | 1-hop | >1-hop]."""
 
     ids: torch.Tensor      # [B, C] int32 node ids (pad: num_nodes)
     cls: torch.Tensor      # [B, C] int32: 0 invalid, 1 one-hop, 2 cn, 3 >1hop
@@ -140,9 +164,6 @@ def extract_context(
     is the batch's masked-rank bitmap (``masking.batch_mask_ranks``);
     with ``train`` and a generator ``gen`` on the tables' device, the
     candidates are subsampled at ``cfg.att_drop``."""
-    if cfg.budget_combined is None:
-        raise NotImplementedError(
-            "only the combined context table (budget_combined) is ported")
     n = adj_rows.num_nodes
     src, tgt = src.long(), tgt.long()
     all_mode = cfg.mask_mode == "all"
@@ -220,6 +241,31 @@ def extract_context(
     num_non1hop = non1.sum(dim=1).float() if all_mode else zeros
     counts = torch.stack(
         [num_cns, num_1hop, num_non1hop, num_cns + num_1hop], dim=-1)
+
+    if cfg.budget_combined is None:
+        # the classic table: each class compacts into its own block
+        # (cn from src's row, 1-hop from the src|tgt rows, >1-hop from
+        # src's PPR support)
+        classes = [((a_n,), (ps_a,), (pt_a,), (cn_a,), 2)]
+        if cfg.mask_mode != "cn":
+            classes.append(((a_n, b_n), (ps_a, ps_b), (pt_a, pt_b),
+                            (onehop_a, onehop_b), 1))
+        if all_mode:
+            classes.append(((p_n,), (ppr_s_vals,), (pt_n,), (non1,), 3))
+        blocks = []
+        for (ids, ps, pt, v, code), budget in zip(classes,
+                                                  cfg.class_budgets):
+            ids = torch.cat(ids, dim=1)
+            blocks.append(_compact(
+                ids, torch.full_like(ids, code, dtype=torch.int32),
+                torch.cat(ps, dim=1), torch.cat(pt, dim=1),
+                torch.cat(v, dim=1), budget, n))
+        cat = lambda j: torch.cat([blk[j] for blk in blocks], dim=1)  # noqa: E731
+        return ContextTables(
+            ids=cat(0), cls=cat(1), src_ppr=cat(2), tgt_ppr=cat(3),
+            valid=cat(4), counts=counts,
+            overflow=sum(blk[5] for blk in blocks),
+        )
 
     # the candidate segments are class-disjoint by construction, so one
     # compaction of their concatenation gives the union of the class sets

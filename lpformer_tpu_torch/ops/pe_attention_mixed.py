@@ -40,6 +40,9 @@ _CSRC = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 _SOURCE = os.path.join(_CSRC, "pe_attention_mixed_fwd.cu")
 _SOURCE_BWD = os.path.join(_CSRC, "pe_attention_mixed_bwd.cu")
+# the kernel templates and device helpers both tables' kernels include
+_HEADERS = [os.path.join(_CSRC, f) for f in (
+    "pe_attention_common.cuh", "pe_attention_fwd.cuh", "pe_attention_bwd.cuh")]
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB = None
@@ -50,39 +53,96 @@ def build() -> Tuple[str, str]:
     """Compile the forward kernel (cached by source hash). Returns (library
     path, compiler output, which holds ptxas's register and spill report)."""
     return build_shared("pe_attention_mixed_fwd", [_SOURCE],
-                        [find_nvcc()] + _NVCC_FLAGS)
+                        [find_nvcc()] + _NVCC_FLAGS, _HEADERS)
 
 
 def build_bwd() -> Tuple[str, str]:
     """Compile the backward kernels, as :func:`build`."""
     return build_shared("pe_attention_mixed_bwd", [_SOURCE_BWD],
-                        [find_nvcc()] + _NVCC_FLAGS)
+                        [find_nvcc()] + _NVCC_FLAGS, _HEADERS)
+
+
+def bind(path, fn, n_ptr, n_int, err_fn):
+    """The library at ``path`` with ``fn``(n_ptr pointers, n_int ints,
+    stream) -> error code and ``err_fn``(error code) -> message typed for
+    ctypes."""
+    lib = ctypes.CDLL(path)
+    getattr(lib, fn).restype = ctypes.c_int
+    getattr(lib, fn).argtypes = ([ctypes.c_void_p] * n_ptr
+                                 + [ctypes.c_int] * n_int + [ctypes.c_void_p])
+    getattr(lib, err_fn).restype = ctypes.c_char_p
+    getattr(lib, err_fn).argtypes = [ctypes.c_int]
+    return lib
 
 
 def _load():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build()[0])
-        lib.pe_attention_mixed_fwd.restype = ctypes.c_int
-        lib.pe_attention_mixed_fwd.argtypes = (
-            [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.pe_attention_mixed_error_string.restype = ctypes.c_char_p
-        lib.pe_attention_mixed_error_string.argtypes = [ctypes.c_int]
-        _LIB = lib
+        _LIB = bind(build()[0], "pe_attention_mixed_fwd", 17, 6,
+                    "pe_attention_mixed_error_string")
     return _LIB
 
 
 def _load_bwd():
     global _LIB_BWD
     if _LIB_BWD is None:
-        lib = ctypes.CDLL(build_bwd()[0])
-        lib.pe_attention_mixed_bwd.restype = ctypes.c_int
-        lib.pe_attention_mixed_bwd.argtypes = (
-            [ctypes.c_void_p] * 25 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.pe_attention_mixed_bwd_error_string.restype = ctypes.c_char_p
-        lib.pe_attention_mixed_bwd_error_string.argtypes = [ctypes.c_int]
-        _LIB_BWD = lib
+        _LIB_BWD = bind(build_bwd()[0], "pe_attention_mixed_bwd", 25, 6,
+                        "pe_attention_mixed_bwd_error_string")
     return _LIB_BWD
+
+
+def ln_affine(x0, x1, w1a, w1b, b1, g, b):
+    """One PE direction's layer 1 and LayerNorm, on the last axis of the
+    broadcast weights: (xhat, r, y) with y = xhat * g + b (before the ReLU)
+    and r the rsqrt factor (two-pass statistics, as the reference)."""
+    pre = x0[..., None] * w1a + x1[..., None] * w1b + b1
+    mu = pre.mean(-1, keepdim=True)
+    xc = pre - mu
+    var = (xc * xc).mean(-1, keepdim=True)
+    r = torch.rsqrt(var + _LN_EPS)
+    xhat = xc * r
+    return xhat, r, xhat * g + b
+
+
+def ln_backward(dy, xhat, r, g):
+    """The LayerNorm's input cotangent from its output cotangent dy."""
+    dxh = dy * g
+    return r * (dxh - dxh.mean(-1, keepdim=True)
+                - xhat * (dxh * xhat).mean(-1, keepdim=True))
+
+
+def attend(xj, valid, q, att, bias):
+    """GATv2 scores over the keys xj [B, C, O] and the masked softmax
+    sum: (out [B, O], m [B], l [B]), as the kernels' online softmax."""
+    z = xj * q[:, None, :]
+    z = torch.where(z >= 0, z, 0.2 * z)
+    s = (z * att.reshape(1, 1, -1)).sum(-1)                  # [B, C]
+    masked = torch.where(valid, s, torch.full_like(s, _NEG))
+    m = masked.amax(dim=1).clamp_min(_NEG / 2)
+    l = (torch.exp(masked - m[:, None]) * valid).sum(dim=1)
+    alpha = masked_softmax(s, valid, axis=1)
+    out = (alpha[..., None] * xj).sum(dim=1) + bias
+    return out, m, l
+
+
+def attend_backward(xj, valid, q, att, m, l, g_out, delta):
+    """The backward of :func:`attend` from the saved m, l and delta =
+    g_out . (out - bias): (dxj [B, C, O], dq [B, O], datt [1, O]), f32;
+    dead slots' dxj are exactly zero."""
+    pre2 = xj * q[:, None, :]
+    z = torch.where(pre2 >= 0, pre2, 0.2 * pre2)
+    arow = att.reshape(1, 1, -1)
+    s = (z * arow).sum(-1)
+    masked = torch.where(valid, s, torch.full_like(s, _NEG))
+    alpha = (torch.exp(masked - m[:, None]) / l.clamp_min(1e-16)[:, None]
+             * valid)
+    galpha = (g_out[:, None, :] * xj).sum(-1)
+    dlog = alpha * (galpha - delta[:, None])                   # [B, C]
+    datt = (dlog[..., None] * z).sum((0, 1)).reshape(att.shape)
+    dpre2 = dlog[..., None] * torch.where(pre2 >= 0, 1.0, 0.2) * arow
+    dxj = alpha[..., None] * g_out[:, None, :] + dpre2 * q[:, None, :]
+    dq = (dpre2 * xj).sum(1)
+    return dxj, dq, datt
 
 
 def fused_pe_link_attention_mixed_plain(
@@ -96,13 +156,9 @@ def fused_pe_link_attention_mixed_plain(
     w1s, b1s, gs, bs = w1[e], b1[e], g[e], b[e]          # [B, C, (2,) dh]
 
     def direction(x0, x1):
-        pre = (x0[..., None] * w1s[..., 0, :] + x1[..., None] * w1s[..., 1, :]
-               + b1s)
-        mu = pre.mean(-1, keepdim=True)
-        xc = pre - mu
-        var = (xc * xc).mean(-1, keepdim=True)
-        h = torch.relu(xc * torch.rsqrt(var + _LN_EPS) * gs + bs)
-        h = h.to(kdt).float()
+        _, _, y = ln_affine(x0, x1, w1s[..., 0, :], w1s[..., 1, :], b1s, gs,
+                            bs)
+        h = torch.relu(y).to(kdt).float()
         pe = torch.zeros(h.shape[:-1] + (w2f.shape[-1],), dtype=torch.float32,
                          device=h.device)
         for k in range(w2f.shape[0]):
@@ -112,15 +168,7 @@ def fused_pe_link_attention_mixed_plain(
 
     xj = (keys.float() + direction(ps, pt) + direction(pt, ps)
           + cbias[e])                                        # [B, C, O]
-    z = xj * q[:, None, :]
-    z = torch.where(z >= 0, z, 0.2 * z)
-    s = (z * att.reshape(1, 1, -1)).sum(-1)                  # [B, C]
-    masked = torch.where(valid, s, torch.full_like(s, _NEG))
-    m = masked.amax(dim=1).clamp_min(_NEG / 2)
-    l = (torch.exp(masked - m[:, None]) * valid).sum(dim=1)
-    alpha = masked_softmax(s, valid, axis=1)
-    out = (alpha[..., None] * xj).sum(dim=1) + bias
-    return out, m, l
+    return attend(xj, valid, q, att, bias)
 
 
 def _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
@@ -151,6 +199,13 @@ def _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
         want["bias"] = (bias, torch.float32, (o,))
     for name, t in extra.items():
         want[name] = (t, torch.float32, per_link[name])
+    check_tensors(keys, want, o, dh)
+
+
+def check_tensors(keys, want, o, dh):
+    """Raise unless every ``want[name] = (tensor, dtype, shape)`` lies on
+    keys' device, contiguous, 16-byte aligned and of that dtype and shape,
+    keys are bf16 or f32, and O, dh fit the kernels' lanes."""
     if keys.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"keys must be bfloat16 or float32, got {keys.dtype}")
     for name, (t, dtype, shape) in want.items():
@@ -218,14 +273,8 @@ def fused_pe_link_attention_mixed_bwd_plain(
     w1s, b1s, gs, bs = w1[e], b1[e], g[e], b[e]          # [B, C, (2,) dh]
 
     def direction(x0, x1):
-        pre = (x0[..., None] * w1s[..., 0, :] + x1[..., None] * w1s[..., 1, :]
-               + b1s)
-        mu = pre.mean(-1, keepdim=True)
-        xc = pre - mu
-        var = (xc * xc).mean(-1, keepdim=True)
-        r = torch.rsqrt(var + _LN_EPS)
-        xhat = xc * r
-        y = xhat * gs + bs
+        xhat, r, y = ln_affine(x0, x1, w1s[..., 0, :], w1s[..., 1, :], b1s,
+                               gs, bs)
         return xhat, r, y, torch.relu(y).to(kdt).float()
 
     xa, ra, ya, ha = direction(ps, pt)
@@ -236,19 +285,7 @@ def fused_pe_link_attention_mixed_bwd_plain(
     for k, sel in enumerate(classes):
         pe[sel] = ha[sel] @ w2[k] + hb[sel] @ w2[k]
     xj = keys.float() + pe + cbias[e]                          # [B, C, O]
-    pre2 = xj * q[:, None, :]
-    z = torch.where(pre2 >= 0, pre2, 0.2 * pre2)
-    arow = att.reshape(1, 1, -1)
-    s = (z * arow).sum(-1)
-    masked = torch.where(valid, s, torch.full_like(s, _NEG))
-    alpha = (torch.exp(masked - m[:, None]) / l.clamp_min(1e-16)[:, None]
-             * valid)
-    galpha = (g_out[:, None, :] * xj).sum(-1)
-    dlog = alpha * (galpha - delta[:, None])                   # [B, C]
-    datt = (dlog[..., None] * z).sum((0, 1)).reshape(att.shape)
-    dpre2 = dlog[..., None] * torch.where(pre2 >= 0, 1.0, 0.2) * arow
-    dxj = alpha[..., None] * g_out[:, None, :] + dpre2 * q[:, None, :]
-    dq = (dpre2 * xj).sum(1)
+    dxj, dq, datt = attend_backward(xj, valid, q, att, m, l, g_out, delta)
     dxc = dxj.to(kdt).float()
 
     def by_class(x):        # sum of [B, C, W] rows per class -> [K, W]
@@ -268,12 +305,7 @@ def fused_pe_link_attention_mixed_bwd_plain(
     dg = by_class(dya * xa + dyb * xb)
     db = by_class(dya + dyb)
 
-    def ln_bwd(dy, xhat, r):
-        dxh = dy * gs
-        return r * (dxh - dxh.mean(-1, keepdim=True)
-                    - xhat * (dxh * xhat).mean(-1, keepdim=True))
-
-    dpa, dpb = ln_bwd(dya, xa, ra), ln_bwd(dyb, xb, rb)
+    dpa, dpb = ln_backward(dya, xa, ra, gs), ln_backward(dyb, xb, rb, gs)
     p0, p1 = ps[..., None], pt[..., None]
     dw1cat = torch.cat([by_class(p0 * dpa + p1 * dpb),
                         by_class(p1 * dpa + p0 * dpb),
@@ -350,18 +382,30 @@ class MixedOp(torch.autograd.Function):
     def backward(ctx, g_out, _dm, _dl):
         (keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, bias,
          m, l, out) = ctx.saved_tensors
-        g_out = g_out.float().contiguous()
-        if g_out.data_ptr() % 16:      # the kernel reads 16-byte vectors
-            g_out = g_out.clone()
-        delta = (g_out * (out - bias)).sum(-1)
+        g_out, delta = backward_cotangent(g_out, out, bias)
         dkeys, dq, dw1cat, dg, db, dw2, dcb, datt = ctx.bwd(
             keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, m,
             l, g_out, delta)
-        k = w1.shape[0]
-        dw1 = torch.stack([dw1cat[:k], dw1cat[k:2 * k]], dim=1)
-        return (None, None, dkeys, None, None, None, None, dq, dw1,
-                dw1cat[2 * k:], dg, db, dw2.to(w2f.dtype), dcb, datt,
-                g_out.sum(0))
+        dw1, db1 = split_layer1_grads(dw1cat)
+        return (None, None, dkeys, None, None, None, None, dq, dw1, db1, dg,
+                db, dw2.to(w2f.dtype), dcb, datt, g_out.sum(0))
+
+
+def backward_cotangent(g_out, out, bias):
+    """The backward kernels' view of the op's output cotangent: (g_out as
+    contiguous, 16-byte aligned f32, delta = g_out . (out - bias)), the
+    caller side of the JAX package's ``_fused_bwd``."""
+    g_out = g_out.float().contiguous()
+    if g_out.data_ptr() % 16:      # the kernels read 16-byte vectors
+        g_out = g_out.clone()
+    return g_out, (g_out * (out - bias)).sum(-1)
+
+
+def split_layer1_grads(dw1cat):
+    """The packed layer-1 grad rows (w1a_k | w1b_k | b1_k) [3K, dh] as
+    (dw1 [K, 2, dh], db1 [K, dh])."""
+    k = dw1cat.shape[0] // 3
+    return torch.stack([dw1cat[:k], dw1cat[k:2 * k]], dim=1), dw1cat[2 * k:]
 
 
 def fused_pe_link_attention_mixed(

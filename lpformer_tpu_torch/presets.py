@@ -1,8 +1,12 @@
 """The collab-like configuration: the JAX package's default bench shape
 (bench.py:61-63 PRESETS["collab-like"], the bf16 default of :172 and the
-synthetic dataset of :245-256), used by chip_smoke.py and
-``profile_eval``."""
+synthetic dataset of :245-256), used by chip_smoke.py, ``profile_eval``
+and ``profile_train``; on the combined context table (the bench's
+default), and on the classic per-class table of its per-class budgets
+(the bench's --no-combined A/B)."""
 from __future__ import annotations
+
+import dataclasses
 
 from lpformer_tpu_torch.models.config import LPFormerConfig
 
@@ -11,6 +15,11 @@ COLLAB_LIKE_CONFIG = LPFormerConfig(
     thresh_cn=0.0, thresh_1hop=1e-2, thresh_non1hop=1e-2,
     budget_combined=128, matmul_dtype="bfloat16",
 )
+# bench.py --no-combined (:155-157, :201-202): the per-class budgets of
+# bench.py:61-63 on the classic table, C = 64 + 128 + 128 = 320 slots
+COLLAB_LIKE_CLASSIC_CONFIG = dataclasses.replace(
+    COLLAB_LIKE_CONFIG, budget_combined=None, budget_cn=64,
+    budget_onehop=128, budget_non1hop=128)
 COLLAB_LIKE_DATA = dict(
     seed=0, num_nodes=50_000, num_train=400_000, num_eval=1000,
     feat_dim=128, eps=5e-4, adj_cap=96, ppr_cap=256,

@@ -1,10 +1,14 @@
 """Where the eval time goes on the card, from torch.profiler traces.
 
-    python -m lpformer_tpu_torch.profile_eval
+    python -m lpformer_tpu_torch.profile_eval [--classic]
 
-1. The fused PE+attention kernel alone on chip_smoke.py's main-path
-   inputs: its device time per launch from the profiler, beside the
-   CUDA-event time per call of 20 back-to-back wrapper calls and the
+On the combined context table (presets.COLLAB_LIKE_CONFIG), or with
+``--classic`` on the classic per-class table
+(presets.COLLAB_LIKE_CLASSIC_CONFIG):
+
+1. The table's fused PE+attention forward kernel alone on chip_smoke.py's
+   main-path inputs: its device time per launch from the profiler, beside
+   the CUDA-event time per call of 20 back-to-back wrapper calls and the
    work's bound.
 2. The collab-like eval sweep (presets.py, random weights): after one
    warm-up sweep, a traced test_standard sweep (propagate once + every
@@ -17,38 +21,52 @@ Needs a CUDA card.
 """
 from __future__ import annotations
 
+import argparse
+
 import torch
 
 from lpformer_tpu_torch import resolve_device
 from lpformer_tpu_torch.data.synthetic import synthetic_dataset
 from lpformer_tpu_torch.evalx import harness
 from lpformer_tpu_torch.models import link_transformer as lt
+from lpformer_tpu_torch.ops import pe_attention as pa
 from lpformer_tpu_torch.ops import pe_attention_mixed as pam
 from lpformer_tpu_torch.presets import (
-    COLLAB_LIKE_BATCH, COLLAB_LIKE_CONFIG, COLLAB_LIKE_DATA,
+    COLLAB_LIKE_BATCH, COLLAB_LIKE_CLASSIC_CONFIG, COLLAB_LIKE_CONFIG,
+    COLLAB_LIKE_DATA,
 )
+from lpformer_tpu_torch.utils import measure
 from lpformer_tpu_torch.utils.measure import (
-    device_kernel_ms, kernel_bound_ms, kernel_inputs, time_ms, trace_device,
+    card_line, device_kernel_ms, time_ms, trace_device,
 )
 
 
-def main(top: int = 12) -> None:
+def main(classic: bool = False, top: int = 12) -> None:
     dev = resolve_device()
-    card = torch.cuda.get_device_name(0)
+    card = card_line()
+    if classic:
+        op, inputs, bound_ms = (pa.fused_pe_link_attention,
+                                measure.classic_kernel_inputs,
+                                measure.classic_bound_ms)
+    else:
+        op, inputs, bound_ms = (pam.fused_pe_link_attention_mixed,
+                                measure.kernel_inputs, measure.kernel_bound_ms)
     for dtype in (torch.bfloat16, torch.float32):
-        a = kernel_inputs(dev, dtype)
+        a = inputs(dev, dtype)
 
         def call():
-            return pam.fused_pe_link_attention_mixed(**a)
+            return op(**a)
 
-        bound, by, nv = kernel_bound_ms(a)
+        bound, by, nv = bound_ms(a)
+        # both tables' forward kernels are instances of this template; a
+        # call launches only its own table's
         print(f"kernel {str(dtype)[6:]}: device "
-              f"{device_kernel_ms(call, 'pe_attention_mixed_fwd'):.4f} ms "
+              f"{device_kernel_ms(call, 'pe_attention_fwd_kernel'):.4f} ms "
               f"per launch (profiler), {time_ms(call, 10, per=20):.4f} ms "
               f"per back-to-back call (events), bound {bound:.5f} ms "
               f"({by}); {nv} valid slots [{card}]")
 
-    cfg = COLLAB_LIKE_CONFIG
+    cfg = COLLAB_LIKE_CLASSIC_CONFIG if classic else COLLAB_LIKE_CONFIG
     ds = synthetic_dataset(**COLLAB_LIKE_DATA, device=dev)
     params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
                               in_dim=COLLAB_LIKE_DATA["feat_dim"], device=dev)
@@ -63,4 +81,7 @@ def main(top: int = 12) -> None:
 
 
 if __name__ == "__main__":
-    main()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--classic", action="store_true",
+                    help="the classic per-class context table")
+    main(ap.parse_args().classic)

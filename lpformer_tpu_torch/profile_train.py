@@ -1,9 +1,11 @@
 """Where a training step's time goes on the card, from a torch.profiler
 trace.
 
-    python -m lpformer_tpu_torch.profile_train [steps]
+    python -m lpformer_tpu_torch.profile_train [--classic] [steps]
 
-Builds the collab-like dataset (presets.py), takes two warm-up training
+Builds the collab-like dataset (presets.py), with the combined context
+table (COLLAB_LIKE_CONFIG) or with ``--classic`` the classic per-class
+table (COLLAB_LIKE_CLASSIC_CONFIG), takes two warm-up training
 steps of batch 4096 with the default dropouts, then traces ``steps``
 (default 5) more: wall time per step, device busy time per step (the CUDA
 kernels' self time), the device idle share, and the kernels that take the
@@ -14,7 +16,7 @@ Needs a CUDA card.
 """
 from __future__ import annotations
 
-import sys
+import argparse
 
 import numpy as np
 import torch
@@ -23,16 +25,18 @@ from lpformer_tpu_torch import resolve_device
 from lpformer_tpu_torch.data.synthetic import synthetic_dataset
 from lpformer_tpu_torch.models import link_transformer as lt
 from lpformer_tpu_torch.presets import (
-    COLLAB_LIKE_BATCH, COLLAB_LIKE_CONFIG, COLLAB_LIKE_DATA,
+    COLLAB_LIKE_BATCH, COLLAB_LIKE_CLASSIC_CONFIG, COLLAB_LIKE_CONFIG,
+    COLLAB_LIKE_DATA,
 )
 from lpformer_tpu_torch.train import optim, step as step_mod
-from lpformer_tpu_torch.utils.measure import trace_device
+from lpformer_tpu_torch.utils.measure import card_line, trace_device
 
 
-def main(steps: int = 5, top: int = 15) -> None:
+def main(steps: int = 5, classic: bool = False, top: int = 15) -> None:
     dev = resolve_device()
-    card = torch.cuda.get_device_name(0)
-    cfg, batch = COLLAB_LIKE_CONFIG, COLLAB_LIKE_BATCH
+    card = card_line()
+    cfg = COLLAB_LIKE_CLASSIC_CONFIG if classic else COLLAB_LIKE_CONFIG
+    batch = COLLAB_LIKE_BATCH
     ds = synthetic_dataset(**COLLAB_LIKE_DATA, device=dev)
     params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
                               in_dim=COLLAB_LIKE_DATA["feat_dim"], device=dev)
@@ -65,4 +69,9 @@ def main(steps: int = 5, top: int = 15) -> None:
 
 
 if __name__ == "__main__":
-    main(*(int(a) for a in sys.argv[1:]))
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("steps", type=int, nargs="?", default=5)
+    ap.add_argument("--classic", action="store_true",
+                    help="the classic per-class context table")
+    args = ap.parse_args()
+    main(args.steps, args.classic)

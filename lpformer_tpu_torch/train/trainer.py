@@ -146,9 +146,13 @@ def train_loop(
     if args.audit_budgets and seed == 0:
         link_rate, entry_rate = overflow_audit(ds, cfg)
         if args.verbose or link_rate > 0.005:
+            budgets = (f"budget_combined={cfg.budget_combined}"
+                       if cfg.budget_combined is not None else
+                       f"budgets cn={cfg.budget_cn} onehop="
+                       f"{cfg.budget_onehop} non1hop={cfg.budget_non1hop}")
             print(f"[budgets] context overflow: {link_rate:.2%} of links "
                   f"truncated, {entry_rate:.2%} of entries dropped "
-                  f"(budget_combined={cfg.budget_combined})", flush=True)
+                  f"({budgets})", flush=True)
         if link_rate > 0.005:
             print("[budgets] WARNING: >0.5% of links exceed the static "
                   "context budget; compaction keeps the top-by-PPR "

@@ -25,14 +25,16 @@ def find_nvcc() -> str:
 
 
 def build_shared(
-    name: str, sources: Sequence[str], compiler: Sequence[str]
+    name: str, sources: Sequence[str], compiler: Sequence[str],
+    headers: Sequence[str] = (),
 ) -> Tuple[str, str]:
     """Build ``sources`` with ``compiler + [-o out] + sources`` into
-    ``BUILD_DIR/lib{name}-{hash}.so`` unless it exists. Returns (path,
-    compiler output; empty when the library was already built). Raises
+    ``BUILD_DIR/lib{name}-{hash}.so`` unless it exists; the hash also
+    covers the ``headers`` the sources include. Returns (path, compiler
+    output; empty when the library was already built). Raises
     RuntimeError with the compiler's output on failure."""
     h = hashlib.sha1(" ".join(compiler).encode())
-    for src in sources:
+    for src in list(sources) + list(headers):
         with open(src, "rb") as f:
             h.update(f.read())
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -7,6 +7,7 @@ Used by chip_smoke.py, ``python -m lpformer_tpu_torch.profile_eval`` and
 from __future__ import annotations
 
 import statistics
+import subprocess
 import time
 
 import torch
@@ -20,9 +21,21 @@ F32_FLOPS = 67e12
 
 # the main-path shape of the fused PE+attention kernel (collab-like)
 B, C, O, DH, K = 4096, 128, 128, 128, 3
+# the classic table's class blocks at the collab-like per-class budgets
+CLASSIC_WIDTHS = (64, 128, 128)
 # rows of the context-key table the scatter-add sums into (50,000 nodes
 # and the zero pad row)
 N_ROWS = 50_001
+
+
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi reports them (a card
+    set below its maximum limit runs slower under load)."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def time_ms(fn, reps: int, per: int = 1, warmup: int = 2) -> float:
@@ -83,32 +96,63 @@ def trace_device(fn, top: int = 12):
                               for e in rows[:top]]
 
 
-def kernel_inputs(dev, dtype, seed=0, b=B, c=C, o=O, dh=DH, k=K):
-    """Inputs of fused_pe_link_attention_mixed with front-compacted
-    validity of a realistic spread: 10% of the links empty, 80% with 1-8
-    valid slots, 7% with 9-64 and 3% full."""
-    g = torch.Generator().manual_seed(seed)
+def _link_counts(g, b, c):
+    """Valid slots per link for a front-compacted row of width c, drawn
+    with a realistic spread: 10% of the links empty, 80% with 1-8 valid
+    slots, 7% with 9-64 and 3% full."""
     u = torch.rand(b, generator=g)
-    counts = torch.where(
+    return torch.where(
         u < 0.1, 0, torch.where(
             u < 0.9, torch.randint(1, 9, (b,), generator=g), torch.where(
                 u < 0.97, torch.randint(9, 65, (b,), generator=g),
                 torch.full((b,), c))))
-    valid = torch.arange(c)[None, :] < counts.clamp(max=c)[:, None]
+
+
+def _weights(g, valid, b, c, o, dh, k, dtype, ecls):
+    """Keys, PPR values, q and K classes' weights around ``valid``, and
+    with ``ecls`` a class per valid slot, mixed."""
     r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
     a = dict(
         keys=r(b, c, o) * 0.5,
         ps=torch.rand(b, c, generator=g) * 0.05 * valid,
         pt=torch.rand(b, c, generator=g) * 0.05 * valid,
         valid=valid,
-        ecls=(torch.randint(0, k, (b, c), generator=g) * valid).int(),
+        **({"ecls": (torch.randint(0, k, (b, c), generator=g)
+                     * valid).int()} if ecls else {}),
         q=r(b, o), w1=r(k, 2, dh), b1=r(k, dh) * 0.1,
         g=1 + 0.1 * r(k, dh), b=0.1 * r(k, dh),
         w2f=r(k, dh, o) / dh ** 0.5, cbias=0.1 * r(k, o),
         att=0.1 * r(1, o), bias=0.1 * r(o),
     )
     a["keys"], a["w2f"] = a["keys"].to(dtype), a["w2f"].to(dtype)
+    return a
+
+
+def kernel_inputs(dev, dtype, seed=0, b=B, c=C, o=O, dh=DH, k=K):
+    """Inputs of fused_pe_link_attention_mixed: each link's row
+    front-compacted with ``_link_counts``' spread, classes mixed per
+    slot."""
+    g = torch.Generator().manual_seed(seed)
+    counts = _link_counts(g, b, c)
+    valid = torch.arange(c)[None, :] < counts.clamp(max=c)[:, None]
+    a = _weights(g, valid, b, c, o, dh, k, dtype, ecls=True)
     return {n: t.to(dev) for n, t in a.items()}
+
+
+def classic_kernel_inputs(dev, dtype, seed=0, b=B, widths=CLASSIC_WIDTHS,
+                          o=O, dh=DH):
+    """Inputs of fused_pe_link_attention (the classic table, with
+    ``class_widths``): each class block of each link front-compacted, its
+    count drawn with ``_link_counts``' spread for that block's width."""
+    g = torch.Generator().manual_seed(seed)
+    valid = torch.cat([
+        torch.arange(w)[None, :] < _link_counts(g, b, w).clamp(max=w)[:, None]
+        for w in widths], dim=1)
+    a = _weights(g, valid, b, sum(widths), o, dh, len(widths), dtype,
+                 ecls=False)
+    a = {n: t.to(dev) for n, t in a.items()}
+    a["class_widths"] = tuple(widths)
+    return a
 
 
 def kernel_bound_ms(a):
@@ -121,11 +165,23 @@ def kernel_bound_ms(a):
     bf16 tensor rate when the weights are bf16) and ~(12*dh + 8*O) f32
     flops for the rest. Returns (ms, "bytes" or "operations", valid
     slots)."""
+    return _fwd_bound(a, slot_bytes=12)
+
+
+def classic_bound_ms(a):
+    """``kernel_bound_ms`` for fused_pe_link_attention on the classic
+    table (``classic_kernel_inputs``): the same count without the class
+    bytes, which the classic table does not have (a slot's class is its
+    column's block)."""
+    return _fwd_bound(a, slot_bytes=8)
+
+
+def _fwd_bound(a, slot_bytes):
     b, c, o = a["keys"].shape
     k, _, dh = a["w1"].shape
     nv = int(a["valid"].sum())
     kb = a["keys"].element_size()
-    nbytes = (b * c + 4 * b * o + nv * (o * kb + 12)
+    nbytes = (b * c + 4 * b * o + nv * (o * kb + slot_bytes)
               + 4 * k * dh * 5 + kb * k * dh * o + 4 * (k * o + 2 * o)
               + 4 * b * o + 8 * b)
     return _bound(nbytes, nv * 2 * dh * o, nv * (12 * dh + 8 * o), kb) + (
@@ -144,14 +200,20 @@ def _bound(nbytes, mm_flops, f32_flops, kb):
 
 
 def bwd_inputs(a, seed=1):
-    """The backward's further inputs for the forward inputs ``a``: a
-    cotangent g_out [B, O] drawn from ``seed`` and the forward's m, l and
-    delta = g_out . (out - bias), from the plain forward on a's device."""
+    """The backward's further inputs for the forward inputs ``a`` (of
+    either table): a cotangent g_out [B, O] drawn from ``seed`` and the
+    forward's m, l and delta = g_out . (out - bias), from the plain forward
+    on a's device."""
+    from lpformer_tpu_torch.ops.pe_attention import (
+        fused_pe_link_attention_plain,
+    )
     from lpformer_tpu_torch.ops.pe_attention_mixed import (
         fused_pe_link_attention_mixed_plain,
     )
 
-    out, m, l = fused_pe_link_attention_mixed_plain(**a)
+    plain = (fused_pe_link_attention_plain if "class_widths" in a
+             else fused_pe_link_attention_mixed_plain)
+    out, m, l = plain(**a)
     g = torch.Generator().manual_seed(seed)
     g_out = (0.1 * torch.randn(out.shape, generator=g)).to(out.device)
     delta = (g_out * (out - a["bias"])).sum(-1)
@@ -169,11 +231,22 @@ def bwd_bound_ms(a):
     W2f^T and the dw2 outer product) at the tensor rate of the weights'
     dtype, and ~(40 dh + 30 O) f32 operations for the rest. Returns (ms,
     "bytes" or "operations", valid slots)."""
+    return _bwd_bound(a, slot_bytes=12)
+
+
+def classic_bwd_bound_ms(a):
+    """``bwd_bound_ms`` for fused_pe_link_attention_bwd on the classic
+    table: the same count without the class bytes; all of dkeys [B, C, O]
+    is written once."""
+    return _bwd_bound(a, slot_bytes=8)
+
+
+def _bwd_bound(a, slot_bytes):
     b, c, o = a["keys"].shape
     k, _, dh = a["w1"].shape
     nv = int(a["valid"].sum())
     kb = a["keys"].element_size()
-    inputs = (b * c + 2 * 4 * b * o + 3 * 4 * b + nv * (o * kb + 12)
+    inputs = (b * c + 2 * 4 * b * o + 3 * 4 * b + nv * (o * kb + slot_bytes)
               + 4 * k * dh * 5 + kb * k * dh * o + 4 * (k * o + o))
     outputs = (b * c * o * kb + 4 * b * o + 4 * k * dh * 5
                + 4 * k * dh * o + 4 * (k * o + o))

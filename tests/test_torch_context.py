@@ -1,9 +1,10 @@
 """The port's context extraction and row lookups against lpformer_tpu's.
 
-The context tables of the combined (class-tagged) layout must be EXACTLY
-equal: ids, classes, validity, counts, overflow and both PPR values, with
-a budget that holds every entry and with a truncating budget of 4 that
-exercises the top-(ppr_s + ppr_t) retention and its tie rule."""
+The context tables of both layouts, the combined (class-tagged) one and
+the classic class-blocked one, must be EXACTLY equal: ids, classes,
+validity, counts, overflow and both PPR values, with budgets that hold
+every entry and with truncating budgets that exercise the top-(ppr_s +
+ppr_t) retention and its tie rule."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -50,6 +51,40 @@ def test_extract_context_identical(both, mode, budget):
             np.asarray(getattr(j, f)), getattr(t, f).numpy(), err_msg=f)
     if budget == 4:
         assert t.overflow.sum() > 0, "the small budget must truncate"
+    else:
+        assert t.overflow.sum() == 0
+
+
+@pytest.mark.parametrize("budgets", [(48, 96, 96), (2, 3, 4)])
+@pytest.mark.parametrize("mode", ["all", "1-hop", "cn"])
+def test_extract_context_classic_identical(both, mode, budgets):
+    """The classic table: each class compacted into its own block of its
+    own budget, [cn | 1-hop | >1-hop] (the active classes only); with
+    budgets of 2 / 3 / 4, below the counts, overflow sums the classes'
+    drops."""
+    jd, td = both
+    t1, tn = MODES[mode]
+    kw = dict(thresh_cn=0.0, thresh_1hop=t1, thresh_non1hop=tn,
+              budget_cn=budgets[0], budget_onehop=budgets[1],
+              budget_non1hop=budgets[2])
+    jcfg = jctx.ContextConfig.from_thresholds(**kw)
+    tcfg = tctx.ContextConfig.from_thresholds(**kw)
+    assert jcfg.total_budget == tcfg.total_budget == sum(
+        tcfg.class_budgets)
+    links = np.concatenate([jd.valid_pos, jd.valid_neg, [[5, 5]]])
+    j = jctx.extract_context(
+        jd.graph.adj_rows, jd.graph.ppr_rows, jnp.asarray(links[:, 0]),
+        jnp.asarray(links[:, 1]), jcfg, train=False)
+    t = tctx.extract_context(
+        td.graph.adj_rows, td.graph.ppr_rows, torch.as_tensor(links[:, 0]),
+        torch.as_tensor(links[:, 1]), tcfg)
+    assert t.ids.shape == (len(links), tcfg.total_budget)
+    for f in ("ids", "cls", "valid", "counts", "overflow", "src_ppr",
+              "tgt_ppr"):
+        np.testing.assert_array_equal(
+            np.asarray(getattr(j, f)), getattr(t, f).numpy(), err_msg=f)
+    if budgets[0] == 2:
+        assert t.overflow.sum() > 0, "the small budgets must truncate"
     else:
         assert t.overflow.sum() == 0
 

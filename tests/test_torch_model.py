@@ -2,9 +2,13 @@
 
 Parameters come from the JAX package's init_lpformer and cross with
 ``from_jax_params``; propagate, forward(train=False) and score_links then
-run in both packages at dim 16 with 2 GNN layers and a combined context
-budget, in the three mask modes. The JAX side runs its dense XLA path and
-its mixed-class Pallas kernel (interpret mode).
+run in both packages at dim 16 with 2 GNN layers, in the three mask modes,
+on both context layouts: a combined budget, and the classic per-class
+blocks. The JAX side runs its dense XLA path and its Pallas kernels
+(interpret mode): the mixed-class kernel on the combined table, the
+class-blocked kernel on the classic one. At class widths no TPU tile
+divides (12 / 40 / 20) the JAX package runs its XLA path, and the port
+its op as everywhere else.
 
 Tolerance in float32: rtol 5e-4 / atol 5e-5, as the JAX package's own
 dense-vs-Pallas comparison (tests/test_combined_context.py). In bf16 the
@@ -42,10 +46,16 @@ def both():
     return jax_synthetic(**KW), synthetic_dataset(**KW, device="cpu")
 
 
+CLASSIC = dict(budget_combined=None, budget_cn=16, budget_onehop=32,
+               budget_non1hop=32)
+MISALIGNED = dict(budget_combined=None, budget_cn=12, budget_onehop=40,
+                  budget_non1hop=20)
+
+
 def _configs(mode, **kw):
     t1, tn = MODES[mode]
-    common = dict(dim=16, gnn_layers=2, thresh_cn=0.0, thresh_1hop=t1,
-                  thresh_non1hop=tn, budget_combined=32, **kw)
+    common = dict(dict(dim=16, gnn_layers=2, thresh_cn=0.0, thresh_1hop=t1,
+                       thresh_non1hop=tn, budget_combined=32), **kw)
     return JConfig(**common, **NO_DROP), TConfig(**common)
 
 
@@ -74,6 +84,39 @@ def test_forward_and_scores_match_f32(both, mode, pallas):
     np.testing.assert_allclose(tx, jx, rtol=5e-4, atol=5e-5)
     np.testing.assert_allclose(th, jh, rtol=5e-4, atol=5e-5)
     np.testing.assert_allclose(ts, js, rtol=5e-4, atol=5e-5)
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+@pytest.mark.parametrize("mode", ["all", "1-hop", "cn"])
+def test_classic_forward_and_scores_match_f32(both, mode, pallas):
+    jd, td = both
+    jcfg, tcfg = _configs(mode, **CLASSIC)
+    if pallas:   # the JAX package takes its class-blocked Pallas kernel
+        assert jlt._pe_tiles(dataclasses.replace(
+            jcfg, use_pallas_attention=True))[1]
+    (jx, jh, js), (tx, th, ts) = _run(jd, td, jcfg, tcfg, pallas)
+    np.testing.assert_allclose(tx, jx, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(th, jh, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(ts, js, rtol=5e-4, atol=5e-5)
+
+
+def test_classic_misaligned_budgets_match_xla_f32(both):
+    jd, td = both
+    jcfg, tcfg = _configs("all", **MISALIGNED)
+    assert jlt._pe_tiles(dataclasses.replace(
+        jcfg, use_pallas_attention=True)) == (0, ())
+    (_, jh, js), (_, th, ts) = _run(jd, td, jcfg, tcfg, False)
+    np.testing.assert_allclose(th, jh, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(ts, js, rtol=5e-4, atol=5e-5)
+
+
+def test_classic_forward_and_scores_match_bf16(both):
+    jd, td = both
+    (jx, jh, js), (tx, th, ts) = _run(
+        jd, td, *_configs("all", matmul_dtype="bfloat16", **CLASSIC), True)
+    np.testing.assert_allclose(tx, jx, rtol=0, atol=5e-3)
+    np.testing.assert_allclose(th, jh, rtol=0, atol=5e-3)
+    np.testing.assert_allclose(ts, js, rtol=0, atol=1e-3)
 
 
 def test_two_attention_layers_match_f32(both):
@@ -107,12 +150,7 @@ def test_masked_softmax_matches():
 
 def test_unported_layouts_raise(both):
     _, td = both
-    tcfg = TConfig(dim=16, gnn_layers=2, budget_combined=None)
-    tp = tlt.init_lpformer(torch.Generator().manual_seed(0), tcfg, 12,
-                           device="cpu")
     src = torch.as_tensor([0, 1])
-    with pytest.raises(NotImplementedError):
-        tlt.forward(tp, tcfg, td.graph, src, src)
     tcfg = TConfig(dim=16, gnn_layers=2, num_heads=2, budget_combined=32)
     tp = tlt.init_lpformer(torch.Generator().manual_seed(0), tcfg, 12,
                            device="cpu")

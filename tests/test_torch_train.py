@@ -1,12 +1,13 @@
 """The port's training path against the JAX package's, on the same
 parameters (``from_jax_params``) and the same synthetic graph: the
-symmetric SpMM backward, the loss and every gradient leaf, the fused
-optimizer, two whole steps, dropout, and train_loop end to end.
+symmetric SpMM backward, the loss and every gradient leaf (on the combined
+and on the classic context table), the fused optimizer, two whole steps,
+dropout, and train_loop end to end.
 
 Parity runs with every dropout off and the negatives injected through
 ``loss_fn``'s neg_src / neg_tgt (JAX's PRNG is not torch's). The JAX side
-runs its dense XLA attention and its mixed-class Pallas kernel pair in
-interpret mode (``use_pallas_attention`` False / True).
+runs its dense XLA attention and its Pallas kernel pair of the table's
+layout in interpret mode (``use_pallas_attention`` False / True).
 
 Tolerances, float32: the loss rtol 1e-5; gradients rtol 5e-4 / atol 5e-5,
 four times tighter than the JAX package's own dense-vs-Pallas grad bound
@@ -85,8 +86,8 @@ def _batch(ds, step):
     return pos[:, 0], pos[:, 1], w, neg
 
 
-def _params(pallas):
-    jcfg = JConfig(**COMMON, use_pallas_attention=pallas)
+def _params(pallas, common=COMMON):
+    jcfg = JConfig(**common, use_pallas_attention=pallas)
     jp = jlt.init_lpformer(jax.random.PRNGKey(3), jcfg, in_dim=12)
     tp = from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
     for x in _tleaves(tp):
@@ -141,6 +142,26 @@ def test_loss_and_grads_match_jax(both, pallas):
     batch = _batch(td, 0)
     jl, jg = _jax_loss_grads(jd, jcfg, jp, batch)
     tl, tg = _torch_loss_grads(td, TConfig(**COMMON), tp, batch)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    jleaves = _jleaves(jg)
+    assert len(jleaves) == len(tg)
+    for (path, want), got in zip(jleaves, tg):
+        np.testing.assert_allclose(got.numpy(), want, err_msg=path,
+                                   **GRAD_TOL)
+
+
+@pytest.mark.parametrize("pallas", [False, True])
+def test_classic_loss_and_grads_match_jax(both, pallas):
+    """The classic per-class context table (the JAX package's default
+    layout): one step's loss and every grad leaf, against the JAX XLA path
+    and its class-blocked Pallas kernel pair."""
+    jd, td = both
+    common = dict(COMMON, budget_combined=None, budget_cn=16,
+                  budget_onehop=32, budget_non1hop=32)
+    jcfg, jp, tp = _params(pallas, common)
+    batch = _batch(td, 0)
+    jl, jg = _jax_loss_grads(jd, jcfg, jp, batch)
+    tl, tg = _torch_loss_grads(td, TConfig(**common), tp, batch)
     np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
     jleaves = _jleaves(jg)
     assert len(jleaves) == len(tg)
