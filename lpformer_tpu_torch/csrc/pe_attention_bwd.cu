@@ -33,8 +33,8 @@ int pe_attention_bwd(
     const void* delta, const void* w1, const void* b1, const void* g,
     const void* bln, const void* w2f, const void* cbias, const void* att,
     void* dkeys, void* dq, void* dw1cat, void* dg, void* db, void* dcb,
-    void* datt, void* dw2, int B, int C, int O, int dh, int K, int n0,
-    int n1, int n2, int bf16, void* stream) {
+    void* datt, void* dw2, int B, int C, int O, int dh, int K,
+    int n0, int n1, int n2, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int widths[3] = {n0, n1, n2};
   BlockedClasses cls;

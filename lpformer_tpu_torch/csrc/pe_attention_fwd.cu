@@ -42,8 +42,8 @@ int pe_attention_fwd(const void* keys, const void* ps, const void* pt,
                                      bln, w2f, cbias, att, bias, out, m_out,
                                      l_out, B, C, O, dh, K, s);
   return launch_fwd<float>(keys, ps, pt, valid, cls, q, w1, b1, g, bln, w2f,
-                           cbias, att, bias, out, m_out, l_out, B, C, O, dh,
-                           K, s);
+                           cbias, att, bias, out, m_out, l_out, B, C, O,
+                           dh, K, s);
 }
 
 const char* pe_attention_error_string(int err) {

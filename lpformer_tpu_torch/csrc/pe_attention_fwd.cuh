@@ -21,35 +21,50 @@
 // tables (valid, and the valid slots' ps/pt), against 3.35 TB/s; the
 // per-slot product is 2*dh*O flops, far below the tensor-core roofline.
 // What the design does about it:
-//   * one warp per link, lanes own 4 consecutive output columns (O <= 128,
-//     dh <= 128, the main path's widths): no block barriers, only warp
-//     shuffles; a link's state (running max, sum and the O accumulators)
-//     stays in registers. A link's softmax spans all its classes, so its
-//     whole row, every class block included, stays in one warp;
+//   * one warp per link, for any O and dh: lanes own 4 output columns per
+//     group of 128 and the hidden units lane + 32*j; past the staging
+//     below, no block barriers, only warp shuffles. A link's softmax spans
+//     all its classes, so its whole row, every class block included, stays
+//     in one warp. The link's running sums over O and the slot's xj sit in
+//     the warp's slice of shared memory, each lane touching only its own
+//     columns;
 //   * valid slots are found 32 at a time with a ballot over the validity
 //     row, so a dead slot costs one byte read and its key row, ps/pt and
 //     class are never loaded; a fully dead 32-slot chunk costs 32 bytes.
 //     A chunk may straddle two classes: each lane finds its own slot's
 //     class, and the warp takes it with the slot's ps/pt by shuffle;
-//   * all K classes' W2f matrices sit in shared memory (3*128*128 bf16 =
-//     96 KB, dynamic shared memory above 48 KB), staged once per block,
-//     and a slot's class selects its matrix by index; the blocks are
-//     persistent (grid = resident blocks) so the staging is paid per SM,
-//     not per link;
-//   * both PE directions share one product: sum_d (h_a[d] + h_b[d]) W2f[d,:].
-// The per-slot W2f read from shared memory (dh*O elements) is what limits
-// the inner loop; batching slots through wgmma is later work.
+//   * W2f (K x dh x O: 96 KB in bf16 at 128, 768 KB in f32 at 256, past
+//     the 227 KB a block may hold) is split by rows at every width: each
+//     persistent block stages the leading rows of every class's matrix in
+//     shared memory, as many as fit beside its warps' slices (all of them
+//     at the collab-like widths in bf16), and reads the rest through the
+//     read-only path, hot in L2; the warp reads 128 consecutive columns of
+//     a row at once. A slot's class selects its matrix;
+//   * both PE directions share one product: sum_d (h_a[d] + h_b[d]) W2f[d,:];
+//   * the kernel's time is set by its longest chains of slots, so warps
+//     draw links from a work counter as they finish (next_link) instead of
+//     a fixed stride that could hand one warp two full links.
+// The per-slot W2f read (dh*O elements) is what limits the inner loop;
+// batching slots through wgmma is later work.
 #pragma once
 
 #include "pe_attention_common.cuh"
 
 namespace {
 
-constexpr int kFwdWarps = 8;            // links in flight per block
+constexpr int kFwdWarps = 16;           // links in flight per block (at most)
 constexpr int kFwdThreads = kFwdWarps * 32;
+constexpr int kFwdBlocks = 1;           // resident blocks per SM
+
+// floats of a warp's slice of shared memory: hs [dh], the LayerNorm's
+// units past the registers (two of smem_units(dh)), xs, acc [O], each
+// 16-byte aligned
+__host__ __device__ constexpr size_t fwd_slice(int dh, int O) {
+  return (size_t)pad4(dh) + 2 * (size_t)smem_units(dh) + 2 * (size_t)pad4(O);
+}
 
 template <typename T, typename Cls>
-__global__ void __launch_bounds__(kFwdThreads, 2)
+__global__ void __launch_bounds__(kFwdThreads, kFwdBlocks)
 pe_attention_fwd_kernel(
     const T* __restrict__ keys, const float* __restrict__ ps,
     const float* __restrict__ pt, const uint8_t* __restrict__ valid,
@@ -60,28 +75,32 @@ pe_attention_fwd_kernel(
     const float* __restrict__ att, const float* __restrict__ bias,
     float* __restrict__ out, float* __restrict__ m_out,
     float* __restrict__ l_out, int B, int C, int O, int dh, int K,
-    size_t w2_smem_bytes) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* w2s = reinterpret_cast<T*>(smem);                       // [K, dh, O]
+    int staged) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the K classes' leading `staged` W2f rows [K, staged, O], then the
+  // warps' slices
+  T* w2s = reinterpret_cast<T*>(smem_raw);
+  float* smem = reinterpret_cast<float*>(
+      smem_raw + staged_bytes(K, staged, O, sizeof(T)));
+  const int warps = blockDim.x >> 5;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float* hs = reinterpret_cast<float*>(smem + w2_smem_bytes) + warp * dh;
-
-  const size_t n_w2 = (size_t)K * dh * O;
-  for (size_t i = threadIdx.x; i < n_w2; i += kFwdThreads) w2s[i] = w2f[i];
+  // the warp's slice: hs [dh] (h_a + h_b, read by every lane), the
+  // LayerNorm's units past the registers (own units), xs [O] (the slot's
+  // xj), acc [O] (the link's weighted sum; own columns)
+  float* hs = smem + (size_t)warp * fwd_slice(dh, O);
+  LnPair ln;
+  ln.sa = hs + pad4(dh);
+  ln.sb = ln.sa + smem_units(dh);
+  float* xs = ln.sb + smem_units(dh);
+  float* acc = xs + pad4(O);
+  const bool vec = (O & 3) == 0;
+  stage_rows(w2f, w2s, K, dh, staged, O);
   __syncthreads();
 
-  const int o = 4 * lane;
-  const bool own = o < O;
-  float attv[4] = {0.f, 0.f, 0.f, 0.f}, biasv[4] = {0.f, 0.f, 0.f, 0.f};
-  if (own) {
-    load4(att + o, attv);
-    load4(bias + o, biasv);
-  }
-
-  for (int b = blockIdx.x * kFwdWarps + warp; b < B;
-       b += gridDim.x * kFwdWarps) {
-    float qv[4] = {0.f, 0.f, 0.f, 0.f}, acc[4] = {0.f, 0.f, 0.f, 0.f};
-    if (own) load4(q + (size_t)b * O + o, qv);
+  for (int b = next_link(lane, B); b < B; b = next_link(lane, B)) {
+    const float zero4[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int o = 4 * lane; o < O; o += kGroup)
+      sts4(acc + o, min(4, O - o), vec, zero4);
     float m = kNeg / 2, l = 0.f;
 
     for (int c0 = 0; c0 < C; c0 += 32) {
@@ -103,46 +122,37 @@ pe_attention_fwd_kernel(
         const float a1 = __shfl_sync(kFull, pt_l, bit);
         const size_t bc = (size_t)b * C + c0 + bit;
 
-        float x[4] = {0.f, 0.f, 0.f, 0.f};   // becomes xj
-        float kv[4] = {0.f, 0.f, 0.f, 0.f};
-        if (own) load4(keys + bc * O + o, kv);
-
         // layer 1 and LayerNorm of both directions
-        float xa[kMaxJD], xb[kMaxJD], ra, rb;
-        ln_pair(w1, b1, k, dh, lane, a0, a1, xa, xb, ra, rb);
+        ln.compute(w1, b1, k, dh, lane, a0, a1);
         __syncwarp();  // the previous slot's reads of hs are done
-#pragma unroll
-        for (int jd = 0; jd < kMaxJD; ++jd) {
-          const int d = lane + 32 * jd;
-          if (d < dh) {
-            const float gg = g[k * dh + d], bn = bln[k * dh + d];
-            hs[d] = round_to(fmaxf(xa[jd] * gg + bn, 0.f), T()) +
-                    round_to(fmaxf(xb[jd] * gg + bn, 0.f), T());
-          }
-        }
+        ln.each(dh, lane, [&](int d, float& xa, float& xb) {
+          const float gg = g[k * dh + d], bn = bln[k * dh + d];
+          hs[d] = round_to(fmaxf(xa * gg + bn, 0.f), T()) +
+                  round_to(fmaxf(xb * gg + bn, 0.f), T());
+        });
         __syncwarp();
 
         // layer 2 (both directions at once) + key + class bias, logit
         float part = 0.f;
-        if (own) {
-          const T* wk = w2s + (size_t)k * dh * O + o;
-#pragma unroll 4
-          for (int d = 0; d < dh; ++d) {
-            float w[4];
-            load4(wk + (size_t)d * O, w);
-            const float h = hs[d];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) x[i] += h * w[i];
-          }
-          float cb[4];
-          load4(cbias + (size_t)k * O + o, cb);
+        const SplitRows<T> wk = {w2s + (size_t)k * staged * O,
+                                 w2f + (size_t)k * dh * O, staged};
+        for (int o = 4 * lane; o < O; o += kGroup) {
+          const int n = min(4, O - o);
+          float x[4] = {0.f, 0.f, 0.f, 0.f};
+          w2_product(wk, hs, dh, O, o, n, vec, x);
+          float kv[4], cb[4], qv[4], av[4];
+          loadn(keys + bc * O + o, n, vec, kv);
+          loadn(cbias + (size_t)k * O + o, n, vec, cb);
+          loadn(q + (size_t)b * O + o, n, vec, qv);
+          loadn(att + o, n, vec, av);
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             x[i] += kv[i] + cb[i];
             float z = x[i] * qv[i];
             z = z >= 0.f ? z : 0.2f * z;
-            part += attv[i] * z;
+            part += av[i] * z;           // 0 past the row's end
           }
+          sts4(xs + o, n, vec, x);
         }
         const float s = warp_sum(part);
 
@@ -150,20 +160,28 @@ pe_attention_fwd_kernel(
         const float m1 = fmaxf(m, s);
         const float corr = expf(m - m1), e = expf(s - m1);
         l = l * corr + e;
+        for (int o = 4 * lane; o < O; o += kGroup) {
+          const int n = min(4, O - o);
+          float a[4], x[4];
+          lds4(acc + o, n, vec, a);
+          lds4(xs + o, n, vec, x);
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i] = acc[i] * corr + e * x[i];
+          for (int i = 0; i < 4; ++i) a[i] = a[i] * corr + e * x[i];
+          sts4(acc + o, n, vec, a);
+        }
         m = m1;
       }
     }
 
-    if (own) {
-      const float inv = 1.f / fmaxf(l, 1e-16f);
-      float4 r;
-      r.x = acc[0] * inv + biasv[0];
-      r.y = acc[1] * inv + biasv[1];
-      r.z = acc[2] * inv + biasv[2];
-      r.w = acc[3] * inv + biasv[3];
-      *reinterpret_cast<float4*>(out + (size_t)b * O + o) = r;
+    const float inv = 1.f / fmaxf(l, 1e-16f);
+    for (int o = 4 * lane; o < O; o += kGroup) {
+      const int n = min(4, O - o);
+      float bv[4], r[4];
+      loadn(bias + o, n, vec, bv);
+      lds4(acc + o, n, vec, r);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] = r[i] * inv + bv[i];
+      storen(out + (size_t)b * O + o, n, vec, r);
     }
     if (lane == 0) {
       m_out[b] = m;
@@ -180,25 +198,30 @@ int launch_fwd(const void* keys, const void* ps, const void* pt,
                const void* w1, const void* b1, const void* g,
                const void* bln, const void* w2f, const void* cbias,
                const void* att, const void* bias, void* out, void* m_out,
-               void* l_out, int B, int C, int O, int dh, int K,
-               cudaStream_t stream) {
-  if (O % 4 != 0 || O > kMaxO || dh > kMaxDh || K < 1)
-    return (int)cudaErrorInvalidValue;
+               void* l_out, int B, int C, int O, int dh,
+               int K, cudaStream_t stream) {
+  if (O < 1 || dh < 1 || K < 1) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t w2_bytes = ((size_t)K * dh * O * sizeof(T) + 15) / 16 * 16;
-  const size_t smem = w2_bytes + (size_t)kFwdWarps * dh * sizeof(float);
+  const size_t per_warp = sizeof(float) * fwd_slice(dh, O);
+  const size_t cap = block_smem_cap(kFwdBlocks);
+  const int warps = warps_that_fit(kFwdWarps, 0, per_warp, cap);
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const int staged =
+      rows_that_fit(K, dh, O, sizeof(T), warps * per_warp, cap);
+  const size_t smem =
+      staged_bytes(K, staged, O, sizeof(T)) + warps * per_warp;
   auto kern = pe_attention_fwd_kernel<T, Cls>;
   int grid = 0, sms = 0;
-  cudaError_t err = persistent_grid(kern, kFwdThreads, smem,
-                                    (B + kFwdWarps - 1) / kFwdWarps, &grid,
-                                    &sms);
+  cudaError_t err = persistent_grid(kern, warps * 32, smem, kFwdBlocks,
+                                    (B + warps - 1) / warps, &grid, &sms);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, kFwdThreads, smem, stream>>>(
+  kern<<<grid, warps * 32, smem, stream>>>(
       (const T*)keys, (const float*)ps, (const float*)pt,
       (const uint8_t*)valid, cls, (const float*)q, (const float*)w1,
       (const float*)b1, (const float*)g, (const float*)bln, (const T*)w2f,
       (const float*)cbias, (const float*)att, (const float*)bias,
-      (float*)out, (float*)m_out, (float*)l_out, B, C, O, dh, K, w2_bytes);
+      (float*)out, (float*)m_out, (float*)l_out, B, C, O, dh, K,
+      staged);
   return (int)cudaGetLastError();
 }
 

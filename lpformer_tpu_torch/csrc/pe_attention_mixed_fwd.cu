@@ -22,8 +22,8 @@ int pe_attention_mixed_fwd(const void* keys, const void* ps, const void* pt,
                            const void* g, const void* bln, const void* w2f,
                            const void* cbias, const void* att,
                            const void* bias, void* out, void* m_out,
-                           void* l_out, int B, int C, int O, int dh, int K,
-                           int bf16, void* stream) {
+                           void* l_out, int B, int C, int O, int dh,
+                           int K, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const TaggedClasses cls{(const int32_t*)ecls, K};
   if (bf16)
@@ -31,8 +31,8 @@ int pe_attention_mixed_fwd(const void* keys, const void* ps, const void* pt,
                                      bln, w2f, cbias, att, bias, out, m_out,
                                      l_out, B, C, O, dh, K, s);
   return launch_fwd<float>(keys, ps, pt, valid, cls, q, w1, b1, g, bln, w2f,
-                           cbias, att, bias, out, m_out, l_out, B, C, O, dh,
-                           K, s);
+                           cbias, att, bias, out, m_out, l_out, B, C, O,
+                           dh, K, s);
 }
 
 const char* pe_attention_mixed_error_string(int err) {

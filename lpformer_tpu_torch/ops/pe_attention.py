@@ -41,20 +41,16 @@ rounded once. In f32 the two differ only in summation order.
 """
 from __future__ import annotations
 
-import os
 from typing import Sequence, Tuple
 
 import torch
 
+from lpformer_tpu_torch.ops._cuda import bind, build_cuda, check_tensors
 from lpformer_tpu_torch.ops.pe_attention_mixed import (
-    _CSRC, _HEADERS, _NVCC_FLAGS, attend, attend_backward,
-    backward_cotangent, bind, check_tensors, ln_affine, ln_backward,
-    split_layer1_grads,
+    HEADERS, attend, attend_backward, backward_cotangent, ln_affine,
+    ln_backward, split_layer1_grads,
 )
-from lpformer_tpu_torch.utils.build import build_shared, find_nvcc
 
-_SOURCE = os.path.join(_CSRC, "pe_attention_fwd.cu")
-_SOURCE_BWD = os.path.join(_CSRC, "pe_attention_bwd.cu")
 _LIB = None
 _LIB_BWD = None
 
@@ -62,14 +58,12 @@ _LIB_BWD = None
 def build() -> Tuple[str, str]:
     """Compile the forward kernel (cached by source hash). Returns (library
     path, compiler output, which holds ptxas's register and spill report)."""
-    return build_shared("pe_attention_fwd", [_SOURCE],
-                        [find_nvcc()] + _NVCC_FLAGS, _HEADERS)
+    return build_cuda("pe_attention_fwd", "pe_attention_fwd.cu", HEADERS)
 
 
 def build_bwd() -> Tuple[str, str]:
     """Compile the backward kernels, as :func:`build`."""
-    return build_shared("pe_attention_bwd", [_SOURCE_BWD],
-                        [find_nvcc()] + _NVCC_FLAGS, _HEADERS)
+    return build_cuda("pe_attention_bwd", "pe_attention_bwd.cu", HEADERS)
 
 
 def _load():
@@ -210,7 +204,7 @@ def _check(keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, bias=None,
         want[name] = (t, torch.float32, per_link[name])
     if k > 3:
         raise ValueError(f"the kernels take K <= 3 classes, got {k}")
-    check_tensors(keys, want, o, dh)
+    check_tensors(keys, want)
 
 
 def _widths3(class_widths):
@@ -235,7 +229,8 @@ def _fwd(keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, bias,
     with torch.cuda.device(keys.device):
         err = lib.pe_attention_fwd(
             *[t.data_ptr() for t in args], out.data_ptr(), m.data_ptr(),
-            l.data_ptr(), bsz, c, o, dh, k, *_widths3(class_widths),
+            l.data_ptr(), bsz, c, o, dh, k,
+            *_widths3(class_widths),
             int(keys.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
@@ -280,7 +275,8 @@ def fused_pe_link_attention_bwd(
             b.data_ptr(), w2f.data_ptr(), cbias.data_ptr(), att.data_ptr(),
             dkeys.data_ptr(), dq.data_ptr(), dw1cat.data_ptr(),
             dg.data_ptr(), db.data_ptr(), dcb.data_ptr(), datt.data_ptr(),
-            dw2.data_ptr(), bsz, c, o, dh, k, *_widths3(class_widths),
+            dw2.data_ptr(), bsz, c, o, dh, k,
+            *_widths3(class_widths),
             int(keys.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )

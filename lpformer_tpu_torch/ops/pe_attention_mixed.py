@@ -25,26 +25,18 @@ layer-1 grad split back into w1[:, 0], w1[:, 1] and b1.
 """
 from __future__ import annotations
 
-import ctypes
-import os
 from typing import Tuple
 
 import torch
 
+from lpformer_tpu_torch.ops._cuda import bind, build_cuda, check_tensors
 from lpformer_tpu_torch.ops.segment import masked_softmax
-from lpformer_tpu_torch.utils.build import build_shared, find_nvcc
 
 _NEG = -1e30
 _LN_EPS = 1e-5
-_CSRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
-_SOURCE = os.path.join(_CSRC, "pe_attention_mixed_fwd.cu")
-_SOURCE_BWD = os.path.join(_CSRC, "pe_attention_mixed_bwd.cu")
 # the kernel templates and device helpers both tables' kernels include
-_HEADERS = [os.path.join(_CSRC, f) for f in (
-    "pe_attention_common.cuh", "pe_attention_fwd.cuh", "pe_attention_bwd.cuh")]
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+HEADERS = ("pe_attention_common.cuh", "pe_attention_fwd.cuh",
+           "pe_attention_bwd.cuh")
 _LIB = None
 _LIB_BWD = None
 
@@ -52,27 +44,14 @@ _LIB_BWD = None
 def build() -> Tuple[str, str]:
     """Compile the forward kernel (cached by source hash). Returns (library
     path, compiler output, which holds ptxas's register and spill report)."""
-    return build_shared("pe_attention_mixed_fwd", [_SOURCE],
-                        [find_nvcc()] + _NVCC_FLAGS, _HEADERS)
+    return build_cuda("pe_attention_mixed_fwd", "pe_attention_mixed_fwd.cu",
+                      HEADERS)
 
 
 def build_bwd() -> Tuple[str, str]:
     """Compile the backward kernels, as :func:`build`."""
-    return build_shared("pe_attention_mixed_bwd", [_SOURCE_BWD],
-                        [find_nvcc()] + _NVCC_FLAGS, _HEADERS)
-
-
-def bind(path, fn, n_ptr, n_int, err_fn):
-    """The library at ``path`` with ``fn``(n_ptr pointers, n_int ints,
-    stream) -> error code and ``err_fn``(error code) -> message typed for
-    ctypes."""
-    lib = ctypes.CDLL(path)
-    getattr(lib, fn).restype = ctypes.c_int
-    getattr(lib, fn).argtypes = ([ctypes.c_void_p] * n_ptr
-                                 + [ctypes.c_int] * n_int + [ctypes.c_void_p])
-    getattr(lib, err_fn).restype = ctypes.c_char_p
-    getattr(lib, err_fn).argtypes = [ctypes.c_int]
-    return lib
+    return build_cuda("pe_attention_mixed_bwd", "pe_attention_mixed_bwd.cu",
+                      HEADERS)
 
 
 def _load():
@@ -199,30 +178,7 @@ def _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
         want["bias"] = (bias, torch.float32, (o,))
     for name, t in extra.items():
         want[name] = (t, torch.float32, per_link[name])
-    check_tensors(keys, want, o, dh)
-
-
-def check_tensors(keys, want, o, dh):
-    """Raise unless every ``want[name] = (tensor, dtype, shape)`` lies on
-    keys' device, contiguous, 16-byte aligned and of that dtype and shape,
-    keys are bf16 or f32, and O, dh fit the kernels' lanes."""
-    if keys.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"keys must be bfloat16 or float32, got {keys.dtype}")
-    for name, (t, dtype, shape) in want.items():
-        if t.device != keys.device:
-            raise ValueError(f"{name} is on {t.device}, keys on {keys.device}")
-        if t.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-    if o % 4 or o > 128 or dh > 128:
-        raise ValueError(f"kernel takes O % 4 == 0, O <= 128, dh <= 128; "
-                         f"got O={o}, dh={dh}")
+    check_tensors(keys, want)
 
 
 def _fwd(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, bias

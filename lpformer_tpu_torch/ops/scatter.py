@@ -14,27 +14,19 @@ change from run to run.
 from __future__ import annotations
 
 import ctypes
-import os
 from typing import Optional, Tuple
 
 import torch
 
-from lpformer_tpu_torch.utils.build import build_shared, find_nvcc
+from lpformer_tpu_torch.ops._cuda import build_cuda
 
-_SOURCE = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "csrc", "scatter_rows_add.cu",
-)
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _LIB = None
 
 
 def build() -> Tuple[str, str]:
     """Compile the kernel (cached by source hash). Returns (library path,
     compiler output)."""
-    return build_shared("scatter_rows_add", [_SOURCE],
-                        [find_nvcc()] + _NVCC_FLAGS)
+    return build_cuda("scatter_rows_add", "scatter_rows_add.cu")
 
 
 def _load():

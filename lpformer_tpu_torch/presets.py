@@ -1,9 +1,14 @@
-"""The collab-like configuration: the JAX package's default bench shape
-(bench.py:61-63 PRESETS["collab-like"], the bf16 default of :172 and the
-synthetic dataset of :245-256), used by chip_smoke.py, ``profile_eval``
-and ``profile_train``; on the combined context table (the bench's
-default), and on the classic per-class table of its per-class budgets
-(the bench's --no-combined A/B)."""
+"""The bench's synthetic configurations, used by chip_smoke.py,
+``profile_eval`` and ``profile_train``:
+
+  * collab-like: the JAX package's default bench shape (bench.py:61-63
+    PRESETS["collab-like"], the bf16 default of :172 and the synthetic
+    dataset of :245-256), on the combined context table (the bench's
+    default), and on the classic per-class table of its per-class budgets
+    (the bench's --no-combined A/B);
+  * ddi-like: bench.py:80-91 PRESETS["ddi-like"], a small dense graph at
+    dim 256 (the reference's >32 GB-GPU shape), on the combined table of
+    budget 128, with the same synthetic generator settings (:245-253)."""
 from __future__ import annotations
 
 import dataclasses
@@ -25,3 +30,14 @@ COLLAB_LIKE_DATA = dict(
     feat_dim=128, eps=5e-4, adj_cap=96, ppr_cap=256,
 )
 COLLAB_LIKE_BATCH = 4096
+
+# bench.py:89-91: 4,096 nodes, 500,000 train edges, feat = dim = 256, batch
+# 4096, combined budget 128 (its per-class budgets 128 / 320 / 320 are the
+# classic table's, C = 768)
+DDI_LIKE_CONFIG = dataclasses.replace(COLLAB_LIKE_CONFIG, dim=256)
+DDI_LIKE_CLASSIC_WIDTHS = (128, 320, 320)
+DDI_LIKE_DATA = dict(
+    seed=0, num_nodes=4_096, num_train=500_000, num_eval=1000,
+    feat_dim=256, eps=5e-4, adj_cap=96, ppr_cap=256,
+)
+DDI_LIKE_BATCH = 4096

@@ -1,12 +1,14 @@
 """Where a training step's time goes on the card, from a torch.profiler
 trace.
 
-    python -m lpformer_tpu_torch.profile_train [--classic] [steps]
+    python -m lpformer_tpu_torch.profile_train [--classic | --ddi] [steps]
 
 Builds the collab-like dataset (presets.py), with the combined context
 table (COLLAB_LIKE_CONFIG) or with ``--classic`` the classic per-class
-table (COLLAB_LIKE_CLASSIC_CONFIG), takes two warm-up training
-steps of batch 4096 with the default dropouts, then traces ``steps``
+table (COLLAB_LIKE_CLASSIC_CONFIG), or with ``--ddi`` the ddi-like dataset
+and preset (DDI_LIKE_CONFIG: dim 256, combined table), takes two warm-up
+training steps of batch 4096 with the default dropouts, then traces
+``steps``
 (default 5) more: wall time per step, device busy time per step (the CUDA
 kernels' self time), the device idle share, and the kernels that take the
 most device time, with their launch counts. The profiler's own host
@@ -26,23 +28,28 @@ from lpformer_tpu_torch.data.synthetic import synthetic_dataset
 from lpformer_tpu_torch.models import link_transformer as lt
 from lpformer_tpu_torch.presets import (
     COLLAB_LIKE_BATCH, COLLAB_LIKE_CLASSIC_CONFIG, COLLAB_LIKE_CONFIG,
-    COLLAB_LIKE_DATA,
+    COLLAB_LIKE_DATA, DDI_LIKE_BATCH, DDI_LIKE_CONFIG, DDI_LIKE_DATA,
 )
 from lpformer_tpu_torch.train import optim, step as step_mod
 from lpformer_tpu_torch.utils.measure import card_line, trace_device
 
 
-def main(steps: int = 5, classic: bool = False, top: int = 15) -> None:
+def main(steps: int = 5, classic: bool = False, ddi: bool = False,
+         top: int = 15) -> None:
     dev = resolve_device()
     card = card_line()
-    cfg = COLLAB_LIKE_CLASSIC_CONFIG if classic else COLLAB_LIKE_CONFIG
-    batch = COLLAB_LIKE_BATCH
-    ds = synthetic_dataset(**COLLAB_LIKE_DATA, device=dev)
+    if ddi:
+        cfg, data, batch = DDI_LIKE_CONFIG, DDI_LIKE_DATA, DDI_LIKE_BATCH
+    else:
+        cfg = COLLAB_LIKE_CLASSIC_CONFIG if classic else COLLAB_LIKE_CONFIG
+        data, batch = COLLAB_LIKE_DATA, COLLAB_LIKE_BATCH
+    ds = synthetic_dataset(**data, device=dev)
     params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
-                              in_dim=COLLAB_LIKE_DATA["feat_dim"], device=dev)
+                              in_dim=data["feat_dim"], device=dev)
     for p in optim.tree_leaves(params):
         p.requires_grad_(True)
-    opt = optim.make_optimizer(1e-3, steps_per_epoch=98)
+    opt = optim.make_optimizer(
+        1e-3, steps_per_epoch=-(-len(ds.train_pos) // batch))
     state = step_mod.TrainState(params, opt.init(params), 0)
     train_step = step_mod.make_train_step(cfg, opt)
     mult = ds.mask_mult_device
@@ -71,7 +78,10 @@ def main(steps: int = 5, classic: bool = False, top: int = 15) -> None:
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("steps", type=int, nargs="?", default=5)
-    ap.add_argument("--classic", action="store_true",
-                    help="the classic per-class context table")
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--classic", action="store_true",
+                       help="the classic per-class context table")
+    which.add_argument("--ddi", action="store_true",
+                       help="the ddi-like preset (dim 256)")
     args = ap.parse_args()
-    main(args.steps, args.classic)
+    main(args.steps, args.classic, args.ddi)

@@ -26,6 +26,15 @@ CLASSIC_WIDTHS = (64, 128, 128)
 # rows of the context-key table the scatter-add sums into (50,000 nodes
 # and the zero pad row)
 N_ROWS = 50_001
+# the shape of the bench's per-link attention A/B (bench.py:824-871) on the
+# collab-like preset: keys [B, C, 2 dim], O = dim, 80% of the slots valid
+AB_DK = 2 * O
+# the largest [B, C, width] f32 intermediate a PE+attention op's plain
+# version takes at once on the card (plain_links)
+PLAIN_ELEMS = B * sum(CLASSIC_WIDTHS) * O
+# the PE+attention ops' inputs that hold one row per link
+PER_LINK = ("keys", "ps", "pt", "valid", "ecls", "q", "m", "l", "g_out",
+            "delta")
 
 
 def card_line() -> str:
@@ -98,26 +107,29 @@ def trace_device(fn, top: int = 12):
 
 def _link_counts(g, b, c):
     """Valid slots per link for a front-compacted row of width c, drawn
-    with a realistic spread: 10% of the links empty, 80% with 1-8 valid
-    slots, 7% with 9-64 and 3% full."""
-    u = torch.rand(b, generator=g)
+    with a realistic spread on the generator's device: 10% of the links
+    empty, 80% with 1-8 valid slots, 7% with 9-64 and 3% full."""
+    d = dict(generator=g, device=g.device)
+    u = torch.rand(b, **d)
     return torch.where(
         u < 0.1, 0, torch.where(
-            u < 0.9, torch.randint(1, 9, (b,), generator=g), torch.where(
-                u < 0.97, torch.randint(9, 65, (b,), generator=g),
-                torch.full((b,), c))))
+            u < 0.9, torch.randint(1, 9, (b,), **d), torch.where(
+                u < 0.97, torch.randint(9, 65, (b,), **d),
+                torch.full((b,), c, device=g.device))))
 
 
 def _weights(g, valid, b, c, o, dh, k, dtype, ecls):
     """Keys, PPR values, q and K classes' weights around ``valid``, and
-    with ``ecls`` a class per valid slot, mixed."""
-    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    with ``ecls`` a class per valid slot, mixed; drawn on the generator's
+    device."""
+    d = dict(generator=g, device=g.device)
+    r = lambda *s: torch.randn(*s, **d)  # noqa: E731
     a = dict(
         keys=r(b, c, o) * 0.5,
-        ps=torch.rand(b, c, generator=g) * 0.05 * valid,
-        pt=torch.rand(b, c, generator=g) * 0.05 * valid,
+        ps=torch.rand(b, c, **d) * 0.05 * valid,
+        pt=torch.rand(b, c, **d) * 0.05 * valid,
         valid=valid,
-        **({"ecls": (torch.randint(0, k, (b, c), generator=g)
+        **({"ecls": (torch.randint(0, k, (b, c), **d)
                      * valid).int()} if ecls else {}),
         q=r(b, o), w1=r(k, 2, dh), b1=r(k, dh) * 0.1,
         g=1 + 0.1 * r(k, dh), b=0.1 * r(k, dh),
@@ -129,28 +141,29 @@ def _weights(g, valid, b, c, o, dh, k, dtype, ecls):
 
 
 def kernel_inputs(dev, dtype, seed=0, b=B, c=C, o=O, dh=DH, k=K):
-    """Inputs of fused_pe_link_attention_mixed: each link's row
+    """Inputs of fused_pe_link_attention_mixed, drawn on ``dev`` (the wide
+    shapes' inputs take seconds to draw on the host): each link's row
     front-compacted with ``_link_counts``' spread, classes mixed per
     slot."""
-    g = torch.Generator().manual_seed(seed)
+    g = torch.Generator(device=dev).manual_seed(seed)
     counts = _link_counts(g, b, c)
-    valid = torch.arange(c)[None, :] < counts.clamp(max=c)[:, None]
-    a = _weights(g, valid, b, c, o, dh, k, dtype, ecls=True)
-    return {n: t.to(dev) for n, t in a.items()}
+    valid = (torch.arange(c, device=dev)[None, :]
+             < counts.clamp(max=c)[:, None])
+    return _weights(g, valid, b, c, o, dh, k, dtype, ecls=True)
 
 
 def classic_kernel_inputs(dev, dtype, seed=0, b=B, widths=CLASSIC_WIDTHS,
                           o=O, dh=DH):
     """Inputs of fused_pe_link_attention (the classic table, with
-    ``class_widths``): each class block of each link front-compacted, its
-    count drawn with ``_link_counts``' spread for that block's width."""
-    g = torch.Generator().manual_seed(seed)
+    ``class_widths``), drawn on ``dev``: each class block of each link
+    front-compacted, its count drawn with ``_link_counts``' spread for that
+    block's width."""
+    g = torch.Generator(device=dev).manual_seed(seed)
     valid = torch.cat([
-        torch.arange(w)[None, :] < _link_counts(g, b, w).clamp(max=w)[:, None]
-        for w in widths], dim=1)
+        torch.arange(w, device=dev)[None, :]
+        < _link_counts(g, b, w).clamp(max=w)[:, None] for w in widths], dim=1)
     a = _weights(g, valid, b, sum(widths), o, dh, len(widths), dtype,
                  ecls=False)
-    a = {n: t.to(dev) for n, t in a.items()}
     a["class_widths"] = tuple(widths)
     return a
 
@@ -199,11 +212,37 @@ def _bound(nbytes, mm_flops, f32_flops, kb):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def plain_links(a):
+    """Links per call of a PE+attention op's plain version on the inputs
+    ``a``, so that its [links, C, max(O, dh)] f32 intermediates stay within
+    those of the collab-like classic shape (B = 4096, C = 320, O = dh =
+    128), which the card holds; wider shapes run in several calls."""
+    b, c, o = a["keys"].shape
+    dh = a["w1"].shape[-1]
+    return max(1, min(b, PLAIN_ELEMS // (c * max(o, dh))))
+
+
+def in_link_chunks(fn, a, n_per_link):
+    """``fn(**a)`` in chunks of ``plain_links(a)`` links: the inputs named in
+    PER_LINK are cut along their first axis and the rest passed whole; of
+    the results, the first ``n_per_link`` (one row per link) are
+    concatenated and the others (sums over links) added. One call when the
+    shape fits."""
+    b, step = a["keys"].shape[0], plain_links(a)
+    if step >= b:
+        return fn(**a)
+    parts = [fn(**{n: v[lo:lo + step] if n in PER_LINK else v
+                   for n, v in a.items()}) for lo in range(0, b, step)]
+    return tuple(torch.cat(xs) if i < n_per_link else torch.stack(xs).sum(0)
+                 for i, xs in enumerate(zip(*parts)))
+
+
 def bwd_inputs(a, seed=1):
     """The backward's further inputs for the forward inputs ``a`` (of
-    either table): a cotangent g_out [B, O] drawn from ``seed`` and the
-    forward's m, l and delta = g_out . (out - bias), from the plain forward
-    on a's device."""
+    either table): a cotangent g_out [B, O] drawn on a's device from
+    ``seed`` and the forward's m, l and delta = g_out . (out - bias), from
+    the plain forward there (in chunks of links where the shape is
+    wide)."""
     from lpformer_tpu_torch.ops.pe_attention import (
         fused_pe_link_attention_plain,
     )
@@ -213,9 +252,9 @@ def bwd_inputs(a, seed=1):
 
     plain = (fused_pe_link_attention_plain if "class_widths" in a
              else fused_pe_link_attention_mixed_plain)
-    out, m, l = plain(**a)
-    g = torch.Generator().manual_seed(seed)
-    g_out = (0.1 * torch.randn(out.shape, generator=g)).to(out.device)
+    out, m, l = in_link_chunks(plain, a, 3)
+    g = torch.Generator(device=out.device).manual_seed(seed)
+    g_out = 0.1 * torch.randn(out.shape, generator=g, device=out.device)
     delta = (g_out * (out - a["bias"])).sum(-1)
     fwd = {k: v for k, v in a.items() if k != "bias"}
     return dict(fwd, m=m, l=l, g_out=g_out, delta=delta)
@@ -285,3 +324,96 @@ def scatter_bound_ms(ids, ct, n, live):
     nl = int(live.sum())
     nbytes = 5 * ids.numel() + nl * d * ct.element_size() + 4 * n * d
     return _bound(nbytes, 0, nl * d, 4) + (nl,)
+
+
+def link_attention_inputs(dev, dtype, seed=0, b=B, c=C, dk=AB_DK, o=O):
+    """Inputs of fused_link_attention at the bench's A/B shape, drawn on
+    ``dev``: keys and q standard normal (the A/B's draws), valid =
+    rng(0).random((B, C)) > 0.2 as the A/B has it, glorot-scaled W_r,
+    small biases and att; keys and W_r in ``dtype``."""
+    import numpy as np
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+    return dict(
+        keys=r(b, c, dk).to(dtype), q=r(b, o),
+        valid=torch.as_tensor(np.random.default_rng(seed).random((b, c))
+                              > 0.2).to(dev),
+        w=(r(dk, o) * (2.0 / (dk + o)) ** 0.5).to(dtype),
+        r_bias=0.1 * r(o), att=0.1 * r(1, o), bias=0.1 * r(o),
+    )
+
+
+def link_attention_bwd_inputs(a, seed=1):
+    """The backward's further inputs for the attention inputs ``a``: a
+    cotangent g_out drawn from ``seed`` and the plain forward's m, l and
+    delta = g_out . (out - bias)."""
+    from lpformer_tpu_torch.ops.attention import fused_link_attention_plain
+
+    out, m, l = fused_link_attention_plain(**a)
+    g = torch.Generator(device=out.device).manual_seed(seed)
+    g_out = 0.1 * torch.randn(out.shape, generator=g, device=out.device)
+    delta = (g_out * (out - a["bias"])).sum(-1)
+    fwd = {k: v for k, v in a.items() if k != "bias"}
+    return dict(fwd, m=m, l=l, g_out=g_out, delta=delta)
+
+
+def link_attention_bound_ms(a):
+    """Least time for the per-link attention forward on the inputs ``a``
+    (``link_attention_inputs``): bytes of the valid mask, q, W_r, the
+    vectors and the outputs once, and of each valid slot's key row (a dead
+    slot's row need not be read); per valid slot one Dk x O product at the
+    tensor rate of the keys' dtype and ~8 O f32 operations. Returns (ms,
+    "bytes" or "operations", valid slots)."""
+    b, c, dk = a["keys"].shape
+    o = a["w"].shape[1]
+    nv = int(a["valid"].sum())
+    kb = a["keys"].element_size()
+    nbytes = (b * c + 4 * b * o + nv * dk * kb + kb * dk * o + 4 * 3 * o
+              + 4 * b * o + 8 * b)
+    return _bound(nbytes, nv * 2 * dk * o, nv * 8 * o, kb) + (nv,)
+
+
+def link_attention_bwd_bound_ms(a):
+    """Least time for the per-link attention backward on the inputs ``a``
+    (``link_attention_inputs`` plus g_out, m, l, delta): the forward's
+    inputs, g_out, m, l and delta read once (valid slots' key rows only);
+    all of dkeys [B, C, Dk] written once (dead rows are zeros), dq, dW and
+    the vectors' grads; per valid slot three Dk x O products (the
+    recomputed xj, dkeys and dW) and ~20 O f32 operations."""
+    b, c, dk = a["keys"].shape
+    o = a["w"].shape[1]
+    nv = int(a["valid"].sum())
+    kb = a["keys"].element_size()
+    inputs = (b * c + 2 * 4 * b * o + 3 * 4 * b + nv * dk * kb
+              + kb * dk * o + 4 * 2 * o)
+    outputs = b * c * dk * kb + 4 * b * o + 4 * dk * o + 4 * 2 * o
+    return _bound(inputs + outputs, nv * 3 * 2 * dk * o, nv * 20 * o,
+                  kb) + (nv,)
+
+
+def lookup_matches(rows, queries):
+    """The entries that fused_lookup's sums must add per lane: for each
+    distinct query value of a row (equal queries share one sum), the
+    row's entries equal to it. A real id matches at most one entry (a
+    row's ids are unique); the pad id matches every pad entry of its row,
+    once for all of the row's pad queries."""
+    srt = rows.sort(dim=1).values.contiguous()
+    q = queries.to(srt.dtype).sort(dim=1).values.contiguous()
+    hits = torch.searchsorted(srt, q, right=True) - torch.searchsorted(srt, q)
+    first = torch.ones_like(q, dtype=torch.bool)
+    first[:, 1:] = q[:, 1:] != q[:, :-1]
+    return int((hits * first).sum())
+
+
+def lookup_bound_ms(rows, queries, lanes):
+    """Least time for fused_lookup: rows, queries and lanes read once and
+    the [B, L, Q] output written once, all int32; B*Q*K compares and one
+    add per lane for each entry the sums need (``lookup_matches``),
+    counted at the card's non-tensor peak (the f32 rate, an upper bound on
+    its int32 rate). Returns (ms, "bytes" or "operations")."""
+    b, k = rows.shape
+    q, n_l = queries.shape[1], lanes.shape[1]
+    nbytes = 4 * (b * k + b * q + b * n_l * k + b * n_l * q)
+    return _bound(nbytes, 0,
+                  b * q * k + n_l * lookup_matches(rows, queries), 4)

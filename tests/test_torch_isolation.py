@@ -38,6 +38,18 @@ def test_no_jax_imports_in_source():
         assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "ops/pe_attention_mixed.py", "ops/pe_attention.py", "ops/scatter.py",
+    "ops/attention.py", "ops/lookup.py", "ops/search.py", "ops/_cuda.py",
+])
+def test_kernel_modules_are_covered(module):
+    """Each module that holds a kernel wrapper is among the files checked
+    above and below, and imports neither jax nor lpformer_tpu."""
+    path = os.path.join(PKG, *module.split("/"))
+    assert path in _port_files()
+    assert not {"jax", "jaxlib", "lpformer_tpu"} & set(_imported_roots(path))
+
+
 def test_importing_every_module_loads_no_jax():
     mods = []
     for path in _port_files()[1:]:

@@ -127,6 +127,20 @@ def test_two_attention_layers_match_f32(both):
     np.testing.assert_allclose(ts, js, rtol=5e-4, atol=5e-5)
 
 
+@pytest.mark.parametrize("wide", [dict(dim=256),
+                                  dict(dim=128, trans_layers=2)])
+def test_wide_layers_match_f32(both, wide):
+    """Past the main path's 128 columns: dim 256 (O = dh = 256, the
+    ddi-like width), and two attention layers at dim 128, whose first has
+    O = 256 over dh = 128; the JAX side through its Pallas kernel."""
+    jd, td = both
+    (jx, jh, js), (tx, th, ts) = _run(jd, td, *_configs("all", **wide),
+                                      True)
+    np.testing.assert_allclose(tx, jx, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(th, jh, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(ts, js, rtol=5e-4, atol=5e-5)
+
+
 def test_forward_and_scores_match_bf16(both):
     jd, td = both
     (jx, jh, js), (tx, th, ts) = _run(

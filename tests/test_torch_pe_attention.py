@@ -26,6 +26,10 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_pe_attention_mixed_bwd import (
+    assert_close_card, assert_close_scaled,
+)
+
 from lpformer_tpu.ops.pallas import pe_attention as jpa
 from lpformer_tpu_torch.ops import pe_attention as tpa
 from lpformer_tpu_torch.ops import pe_attention_mixed as tpam
@@ -33,33 +37,37 @@ from lpformer_tpu_torch.ops import pe_attention_mixed as tpam
 B, O, DH = 8, 16, 16
 ALIGNED = (16, 32, 32)      # one 16-slot TPU tile divides every width
 MISALIGNED = (12, 40, 20)
+# (O, dh) beyond the main path's 128: a dim-256 layer; the first layer of
+# trans_layers=2 at dim 128; widths of no power of two, the last with a
+# ragged 4-column group (O % 4 != 0)
+WIDTHS = [(256, 256), (256, 128), (72, 40), (70, 36)]
 DIFF = ("keys", "q", "w1", "b1", "g", "b", "w2f", "cbias", "att", "bias")
 ORDER = ("keys", "ps", "pt", "valid", "q", "w1", "b1", "g", "b", "w2f",
          "cbias", "att", "bias")
 
 
-def _inputs(widths, seed, bf16=False):
+def _inputs(widths, seed, bf16=False, o=O, dh=DH):
     """Random validity (not a prefix of each block), with one empty link
-    and one full link."""
+    and one full link; O = o output columns, dh = dh hidden units."""
     rng = np.random.default_rng(seed)
     k, c = len(widths), sum(widths)
     valid = rng.random((B, c)) < 0.4
     valid[1] = False
     valid[4] = True
     a = dict(
-        keys=rng.standard_normal((B, c, O)).astype(np.float32) * 0.5,
+        keys=rng.standard_normal((B, c, o)).astype(np.float32) * 0.5,
         ps=(rng.random((B, c)) * 0.1).astype(np.float32) * valid,
         pt=(rng.random((B, c)) * 0.1).astype(np.float32) * valid,
         valid=valid,
-        q=rng.standard_normal((B, O)).astype(np.float32),
-        w1=rng.standard_normal((k, 2, DH)).astype(np.float32),
-        b1=rng.standard_normal((k, DH)).astype(np.float32) * 0.1,
-        g=(1 + 0.1 * rng.standard_normal((k, DH))).astype(np.float32),
-        b=(0.1 * rng.standard_normal((k, DH))).astype(np.float32),
-        w2f=(rng.standard_normal((k, DH, O)) / DH ** 0.5).astype(np.float32),
-        cbias=(0.1 * rng.standard_normal((k, O))).astype(np.float32),
-        att=rng.standard_normal((1, O)).astype(np.float32) * 0.3,
-        bias=(0.1 * rng.standard_normal(O)).astype(np.float32),
+        q=rng.standard_normal((B, o)).astype(np.float32),
+        w1=rng.standard_normal((k, 2, dh)).astype(np.float32),
+        b1=rng.standard_normal((k, dh)).astype(np.float32) * 0.1,
+        g=(1 + 0.1 * rng.standard_normal((k, dh))).astype(np.float32),
+        b=(0.1 * rng.standard_normal((k, dh))).astype(np.float32),
+        w2f=(rng.standard_normal((k, dh, o)) / dh ** 0.5).astype(np.float32),
+        cbias=(0.1 * rng.standard_normal((k, o))).astype(np.float32),
+        att=rng.standard_normal((1, o)).astype(np.float32) * 0.3,
+        bias=(0.1 * rng.standard_normal(o)).astype(np.float32),
     )
     if bf16:  # round once, so both sides see the same values
         for n in ("keys", "w2f"):
@@ -104,9 +112,9 @@ def _jax_fwd(a, widths, bf16=False):
     return np.asarray(out), np.asarray(m)[:, 0], np.asarray(l)[:, 0]
 
 
-def _cot(seed):
+def _cot(seed, o=O):
     return np.random.default_rng(100 + seed).standard_normal(
-        (B, O)).astype(np.float32)
+        (B, o)).astype(np.float32)
 
 
 def _jax_grads(a, widths, g_out, bf16=False):
@@ -186,6 +194,25 @@ def test_grads_match_pallas_vjp_bf16():
         assert tg[n].dtype == want_dtype, n
         np.testing.assert_allclose(tg[n].float().numpy(), jg[n], rtol=2e-2,
                                    atol=2e-3, err_msg=n)
+
+
+@pytest.mark.parametrize("o,dh", WIDTHS)
+def test_plain_matches_pallas_at_widths(o, dh):
+    """Any O and dh, forward and every grad, f32: rtol 1e-4 / atol 1e-5 of
+    each output's scale (``assert_close_scaled``)."""
+    a = _inputs(ALIGNED, seed=o + dh, o=o, dh=dh)
+    jo, jm, jl = _jax_fwd(a, ALIGNED)
+    to, tm, tl = tpa.fused_pe_link_attention_plain(**_torch_args(a),
+                                                   class_widths=ALIGNED)
+    np.testing.assert_allclose(to.numpy(), jo, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tm.numpy(), jm, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), jl, rtol=1e-4, atol=1e-5)
+    g_out = _cot(o, o=o)
+    jo, jg = _jax_grads(a, ALIGNED, g_out)
+    to, tg = _torch_grads(a, ALIGNED, g_out)
+    assert_close_scaled(to, jo, 1e-4, 1e-5)
+    for n in DIFF:
+        assert_close_scaled(tg[n].numpy(), jg[n], 1e-4, 1e-5, n)
 
 
 @pytest.mark.parametrize("widths", [MISALIGNED, (0, 40, 20)])
@@ -274,17 +301,18 @@ def test_kernel_input_checks(name, bad, err):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
-def test_kernels_match_plain_on_card(bf16):
+@pytest.mark.parametrize("o,dh", [(O, DH)] + WIDTHS)
+def test_kernels_match_plain_on_card(bf16, o, dh):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    a = _inputs(MISALIGNED, seed=5, bf16=bf16)
+    a = _inputs(MISALIGNED, seed=5, bf16=bf16, o=o, dh=dh)
     t = {n: v.cuda() for n, v in _torch_args(a, bf16=bf16).items()}
     before = (tpa.fused_pe_link_attention.launches,
               tpa.fused_pe_link_attention_bwd.launches)
     got = tpa.fused_pe_link_attention(**t, class_widths=MISALIGNED)
     out, m, l = tpa.fused_pe_link_attention_plain(**t,
                                                   class_widths=MISALIGNED)
-    g_out = torch.as_tensor(_cot(5)).cuda()
+    g_out = torch.as_tensor(_cot(5, o=o)).cuda()
     args = [t[n] for n in ORDER[:-1]] + [m, l, g_out,
                                          (g_out * (out - t["bias"])).sum(-1)]
     got_b = tpa.fused_pe_link_attention_bwd(*args, MISALIGNED)
@@ -294,9 +322,12 @@ def test_kernels_match_plain_on_card(bf16):
                                                           before[1] + 1)
     want_b = tpa.fused_pe_link_attention_bwd_plain(*args, MISALIGNED)
     tol = 2e-2 if bf16 else 1e-4
-    for x, y in zip(got, (out, m, l)):
-        torch.testing.assert_close(x, y, rtol=tol, atol=tol / 10)
     for x, y in zip(got_b, want_b):
         assert x.dtype == y.dtype
-        torch.testing.assert_close(x.float(), y.float(), rtol=tol,
-                                   atol=tol / 10)
+    if (o, dh) == (O, DH):
+        for x, y in zip(got + got_b, (out, m, l) + want_b):
+            torch.testing.assert_close(x.float(), y.float(), rtol=tol,
+                                       atol=tol / 10)
+    else:
+        for x, y in zip(got + got_b, (out, m, l) + want_b):
+            assert_close_card(x, y, tol)

@@ -19,11 +19,16 @@ from lpformer_tpu.ops.pallas import pe_attention_mixed as jpam
 from lpformer_tpu_torch.ops import pe_attention_mixed as tpam
 
 B, C, O, DH, CT = 6, 16, 16, 16, 8
+# (O, dh) beyond the main path's 128: a dim-256 layer; the first layer of
+# trans_layers=2 at dim 128; widths of no power of two, the last with a
+# ragged 4-column group (O % 4 != 0)
+WIDTHS = [(256, 256), (256, 128), (72, 40), (70, 36)]
 
 
-def _inputs(K, seed, mode, dtype=np.float32):
+def _inputs(K, seed, mode, dtype=np.float32, o=O, dh=DH):
     """Front-compacted validity with an empty row and a full row; classes
-    mixed per slot ("mixed") or one class per row ("single")."""
+    mixed per slot ("mixed") or one class per row ("single"); O = o
+    output columns, dh = dh hidden units."""
     rng = np.random.default_rng(seed)
     counts = np.array([0, 1, 3, C, 5, 2])
     valid = np.arange(C)[None, :] < counts[:, None]
@@ -33,19 +38,19 @@ def _inputs(K, seed, mode, dtype=np.float32):
         ecls = np.repeat(rng.integers(0, K, (B, 1)), C, axis=1)
     ecls = np.where(valid, ecls, 0).astype(np.int32)
     a = dict(
-        keys=rng.standard_normal((B, C, O)).astype(np.float32) * 0.5,
+        keys=rng.standard_normal((B, C, o)).astype(np.float32) * 0.5,
         ps=(rng.random((B, C)) * 0.1).astype(np.float32) * valid,
         pt=(rng.random((B, C)) * 0.1).astype(np.float32) * valid,
         valid=valid, ecls=ecls,
-        q=rng.standard_normal((B, O)).astype(np.float32),
-        w1=rng.standard_normal((K, 2, DH)).astype(np.float32),
-        b1=rng.standard_normal((K, DH)).astype(np.float32) * 0.1,
-        g=(1 + 0.1 * rng.standard_normal((K, DH))).astype(np.float32),
-        b=(0.1 * rng.standard_normal((K, DH))).astype(np.float32),
-        w2f=(rng.standard_normal((K, DH, O)) / DH ** 0.5).astype(np.float32),
-        cbias=(0.1 * rng.standard_normal((K, O))).astype(np.float32),
-        att=rng.standard_normal((1, O)).astype(np.float32) * 0.3,
-        bias=(0.1 * rng.standard_normal(O)).astype(np.float32),
+        q=rng.standard_normal((B, o)).astype(np.float32),
+        w1=rng.standard_normal((K, 2, dh)).astype(np.float32),
+        b1=rng.standard_normal((K, dh)).astype(np.float32) * 0.1,
+        g=(1 + 0.1 * rng.standard_normal((K, dh))).astype(np.float32),
+        b=(0.1 * rng.standard_normal((K, dh))).astype(np.float32),
+        w2f=(rng.standard_normal((K, dh, o)) / dh ** 0.5).astype(np.float32),
+        cbias=(0.1 * rng.standard_normal((K, o))).astype(np.float32),
+        att=rng.standard_normal((1, o)).astype(np.float32) * 0.3,
+        bias=(0.1 * rng.standard_normal(o)).astype(np.float32),
     )
     if dtype != np.float32:  # round once, so both sides see the same values
         for k in ("keys", "w2f"):
@@ -107,6 +112,17 @@ def test_plain_matches_pallas_bf16():
     np.testing.assert_allclose(tl.numpy(), jl, rtol=2e-3, atol=2e-3)
 
 
+@pytest.mark.parametrize("o,dh", WIDTHS)
+def test_plain_matches_pallas_at_widths(o, dh):
+    """Any O and dh, at the f32 tolerance."""
+    a = _inputs(3, seed=o + dh, mode="mixed", o=o, dh=dh)
+    jo, jm, jl = _jax(a)
+    to, tm, tl = tpam.fused_pe_link_attention_mixed_plain(**_torch_args(a))
+    np.testing.assert_allclose(to.numpy(), jo, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tm.numpy(), jm, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(tl.numpy(), jl, rtol=1e-4, atol=1e-5)
+
+
 def test_wrapper_runs_plain_on_cpu_tensors():
     """No build and no launch for CPU tensors: the result is the plain
     version's, and the module imports and runs without nvcc."""
@@ -149,6 +165,23 @@ def test_kernel_matches_plain_on_card(bf16):
     got = tpam.fused_pe_link_attention_mixed(**a)
     torch.cuda.synchronize()
     assert tpam.fused_pe_link_attention_mixed.launches == before + 1
+    want = tpam.fused_pe_link_attention_mixed_plain(**a)
+    tol = 2e-3 if bf16 else 1e-4
+    for x, y in zip(got, want):
+        torch.testing.assert_close(x, y, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("o,dh", WIDTHS)
+def test_kernel_matches_plain_on_card_at_widths(o, dh, bf16):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a = _torch_args(_inputs(3, seed=o + dh, mode="mixed", o=o, dh=dh),
+                    bf16=bf16)
+    a = {k: v.cuda() for k, v in a.items()}
+    got = tpam.fused_pe_link_attention_mixed(**a)
+    torch.cuda.synchronize()
     want = tpam.fused_pe_link_attention_mixed_plain(**a)
     tol = 2e-3 if bf16 else 1e-4
     for x, y in zip(got, want):

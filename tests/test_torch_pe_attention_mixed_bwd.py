@@ -22,7 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_pe_attention_mixed import CT, _inputs, _torch_args
+from test_torch_pe_attention_mixed import CT, WIDTHS, _inputs, _torch_args
 
 from lpformer_tpu.ops.pallas import pe_attention_mixed as jpam
 from lpformer_tpu_torch.ops import pe_attention_mixed as tpam
@@ -89,6 +89,43 @@ def test_grads_match_pallas_vjp_bf16(mode):
         assert tg[k].dtype == want_dtype, k
         np.testing.assert_allclose(tg[k].float().numpy(), jg[k], rtol=2e-2,
                                    atol=2e-3, err_msg=k)
+
+
+def assert_close_scaled(got, want, rtol, atol, msg=""):
+    """rtol, and atol times the largest |want| (at least 1): at O, dh = 256
+    a grad element sums hundreds of f32 terms of up to ~100 (the b1 grad
+    reaches 140), so an element that cancels to near zero keeps the f32
+    rounding of its largest terms, ~1e-6 of the tensor's scale (measured)."""
+    np.testing.assert_allclose(
+        got, want, rtol=rtol, atol=atol * max(1.0, float(np.abs(want).max())),
+        err_msg=msg)
+
+
+def assert_close_card(got, want, tol, msg=""):
+    """A kernel against its plain version on the card past the main path's
+    widths: max |err| within ``tol`` of the output's largest magnitude and
+    mean |err| within ``tol / 10`` of its mean magnitude. At O, dh = 256 an
+    element sums hundreds of terms in another order (f32), and in bf16 a
+    flipped rounding of h upstream can move single elements by much more
+    than their own rounding (the leaky-ReLU slope flips), which the mean
+    bound keeps from hiding a systematic error."""
+    d = (got.float() - want.float()).abs()
+    w = want.float().abs()
+    assert d.max() <= tol * w.max().clamp_min(1e-30), (msg, float(d.max()))
+    assert d.mean() <= tol / 10 * w.mean().clamp_min(1e-30), (
+        msg, float(d.mean()))
+
+
+@pytest.mark.parametrize("o,dh", WIDTHS)
+def test_grads_match_pallas_vjp_at_widths(o, dh):
+    """Any O and dh, f32: rtol 1e-4 / atol 1e-5 of each grad's scale."""
+    a = _inputs(3, seed=o + dh, mode="mixed", o=o, dh=dh)
+    g_out = _cot(a, o)
+    jo, jg = _jax_grads(a, g_out)
+    to, tg = _torch_grads(a, g_out)
+    assert_close_scaled(to, jo, 1e-4, 1e-5)
+    for k in DIFF:
+        assert_close_scaled(tg[k].numpy(), jg[k], 1e-4, 1e-5, k)
 
 
 def test_plain_bwd_matches_autograd_of_plain_forward():
@@ -163,11 +200,12 @@ def test_bwd_input_checks(name, bad, err):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
-def test_kernel_matches_plain_on_card(bf16):
+@pytest.mark.parametrize("o,dh", [(16, 16)] + WIDTHS)
+def test_kernel_matches_plain_on_card(bf16, o, dh):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     a = _inputs(3, seed=6, mode="mixed",
-                dtype=jnp.bfloat16 if bf16 else np.float32)
+                dtype=jnp.bfloat16 if bf16 else np.float32, o=o, dh=dh)
     t = {k: v.cuda() for k, v in _torch_args(a, bf16=bf16).items()}
     out, m, l = tpam.fused_pe_link_attention_mixed_plain(**t)
     g_out = torch.as_tensor(_cot(a, 6)).cuda()
@@ -181,5 +219,8 @@ def test_kernel_matches_plain_on_card(bf16):
     tol = 2e-2 if bf16 else 1e-4
     for x, y in zip(got, want):
         assert x.dtype == y.dtype
-        torch.testing.assert_close(x.float(), y.float(), rtol=tol,
-                                   atol=tol / 10)
+        if (o, dh) == (16, 16):
+            torch.testing.assert_close(x.float(), y.float(), rtol=tol,
+                                       atol=tol / 10)
+        else:
+            assert_close_card(x, y, tol)

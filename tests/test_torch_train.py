@@ -170,6 +170,26 @@ def test_classic_loss_and_grads_match_jax(both, pallas):
                                    **GRAD_TOL)
 
 
+@pytest.mark.parametrize("wide", [dict(dim=256),
+                                  dict(dim=128, trans_layers=2)])
+def test_wide_loss_and_grads_match_jax(both, wide):
+    """One step past the main path's 128 columns (dim 256; two attention
+    layers at dim 128, the first with O = 256), against the JAX package's
+    Pallas kernel pair."""
+    jd, td = both
+    common = dict(COMMON, **wide)
+    jcfg, jp, tp = _params(True, common)
+    batch = _batch(td, 0)
+    jl, jg = _jax_loss_grads(jd, jcfg, jp, batch)
+    tl, tg = _torch_loss_grads(td, TConfig(**common), tp, batch)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    jleaves = _jleaves(jg)
+    assert len(jleaves) == len(tg)
+    for (path, want), got in zip(jleaves, tg):
+        np.testing.assert_allclose(got.numpy(), want, err_msg=path,
+                                   **GRAD_TOL)
+
+
 def _opt_tree(seed):
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
