@@ -25,8 +25,10 @@ tensors (built with nvcc for sm_90a at first use, loaded with ctypes) and
 runs ``fused_pe_link_attention_plain``, the same math in torch ops with
 one contiguous column slice per class, on CPU tensors. Its backward, from
 the saved m, l and out, is ``fused_pe_link_attention_bwd``: the CUDA
-kernels ``csrc/pe_attention_bwd.cu`` on CUDA tensors,
-``fused_pe_link_attention_bwd_plain`` on CPU tensors. There is no fallback
+kernels ``csrc/pe_attention_bwd.cu`` on CUDA tensors, which take tiles of
+one class's valid slots as ``compact_slots`` lists them (device ops, no
+host synchronisation), ``fused_pe_link_attention_bwd_plain`` on CPU
+tensors. There is no fallback
 between kernel and plain version. delta = g_out . (out - bias) and dbias =
 sum_b g_out are computed in torch, as the JAX package's ``_fused_bwd``.
 
@@ -53,6 +55,9 @@ from lpformer_tpu_torch.ops.pe_attention_mixed import (
 
 _LIB = None
 _LIB_BWD = None
+# what csrc/pe_attention_bwd.cu includes: the tile kernels over compacted
+# valid slots and the shared device helpers
+BWD_HEADERS = ("pe_attention_common.cuh", "pe_attention_bwd_tiles.cuh")
 
 
 def build() -> Tuple[str, str]:
@@ -63,7 +68,8 @@ def build() -> Tuple[str, str]:
 
 def build_bwd() -> Tuple[str, str]:
     """Compile the backward kernels, as :func:`build`."""
-    return build_cuda("pe_attention_bwd", "pe_attention_bwd.cu", HEADERS)
+    return build_cuda("pe_attention_bwd", "pe_attention_bwd.cu",
+                      BWD_HEADERS)
 
 
 def _load():
@@ -77,7 +83,7 @@ def _load():
 def _load_bwd():
     global _LIB_BWD
     if _LIB_BWD is None:
-        _LIB_BWD = bind(build_bwd()[0], "pe_attention_bwd", 24, 9,
+        _LIB_BWD = bind(build_bwd()[0], "pe_attention_bwd", 25, 10,
                         "pe_attention_bwd_error_string")
     return _LIB_BWD
 
@@ -111,6 +117,41 @@ def _pe_blocks(ps, pt, w1, b1, g, b, w2f, class_widths):
             dirs.append((xhat, r, y, torch.relu(y).to(kdt).float()))
         out.append((dirs, dirs[0][3] @ w2, dirs[1][3] @ w2))
     return out
+
+
+def tile_slots(o, dh):
+    """Valid slots in one tile of the backward kernels: 64, or 32 when O or
+    dh passes 128 (a block's shared memory holds the tile's [TS, 2 dh] and
+    [TS, max(O, dh)] arrays beside W2f_k)."""
+    return 64 if max(o, dh) <= 128 else 32
+
+
+def compact_slots(valid, class_widths):
+    """The valid slots in (class k, link b, column c) order, as the backward
+    kernels' tiles take them: (slots [B*C] int32, the slot ids b*C + c
+    of the valid slots first, then the dead ones; offsets [K+1] int32,
+    class k's slots at [offsets[k], offsets[k+1])). Device ops only, with
+    no host synchronisation: one cumsum over the class blocks' validity
+    flattened block by block, and a scatter of the slot ids."""
+    bsz, c = valid.shape
+    ids = torch.arange(bsz * c, dtype=torch.int32,
+                       device=valid.device).view(bsz, c)
+    blocks = list(_blocks(class_widths))
+    live = torch.cat([valid[:, cols].reshape(-1) for _, cols in blocks])
+    sid = torch.cat([ids[:, cols].reshape(-1) for _, cols in blocks])
+    pos = torch.cumsum(live, 0, dtype=torch.int32)    # inclusive ranks
+    # a stable partition: the dead slots follow the valid ones, each to a
+    # place of its own (no two writes to one entry)
+    dead_rank = torch.arange(bsz * c, dtype=torch.int32,
+                             device=valid.device) - pos
+    dest = torch.where(live, pos - 1, pos[-1:] + dead_rank)
+    slots = torch.empty_like(sid).scatter_(0, dest.long(), sid)
+    # class k ends after B * (its width and the widths before it) entries;
+    # integer indices are views, so no index tensor crosses from the host
+    ranks = torch.cat([pos.new_zeros(1), pos])
+    offsets = torch.stack([ranks[bsz * cols.start] for _, cols in blocks]
+                          + [ranks[bsz * c]])
+    return slots, offsets
 
 
 def _keys_xj(keys, cbias, blocks, class_widths):
@@ -258,25 +299,28 @@ def fused_pe_link_attention_bwd(
     k, _, dh = w1.shape
     dev = keys.device
     f32 = dict(dtype=torch.float32, device=dev)
-    dkeys = torch.empty(keys.shape, dtype=keys.dtype, device=dev)
-    dq = torch.empty((bsz, o), **f32)
+    # the kernels write the valid slots' rows only: dead rows stay zero
+    dkeys = torch.zeros(keys.shape, dtype=keys.dtype, device=dev)
+    dq = torch.zeros((bsz, o), **f32)
     dw1cat = torch.zeros((3 * k, dh), **f32)
     dg = torch.zeros((k, dh), **f32)
     db = torch.zeros((k, dh), **f32)
     dw2 = torch.zeros((k, dh, o), **f32)
     dcb = torch.zeros((k, o), **f32)
     datt = torch.zeros(att.shape, **f32)
+    slots, offsets = compact_slots(valid, class_widths)
     lib = _load_bwd()
     with torch.cuda.device(dev):
         err = lib.pe_attention_bwd(
-            keys.data_ptr(), ps.data_ptr(), pt.data_ptr(), valid.data_ptr(),
+            keys.data_ptr(), ps.data_ptr(), pt.data_ptr(),
+            slots.data_ptr(), offsets.data_ptr(),
             q.data_ptr(), g_out.data_ptr(), m.data_ptr(), l.data_ptr(),
             delta.data_ptr(), w1.data_ptr(), b1.data_ptr(), g.data_ptr(),
             b.data_ptr(), w2f.data_ptr(), cbias.data_ptr(), att.data_ptr(),
             dkeys.data_ptr(), dq.data_ptr(), dw1cat.data_ptr(),
             dg.data_ptr(), db.data_ptr(), dcb.data_ptr(), datt.data_ptr(),
             dw2.data_ptr(), bsz, c, o, dh, k,
-            *_widths3(class_widths),
+            *_widths3(class_widths), tile_slots(o, dh),
             int(keys.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )

@@ -13,6 +13,9 @@ training steps of batch 4096 with the default dropouts, then traces
 kernels' self time), the device idle share, and the kernels that take the
 most device time, with their launch counts. The profiler's own host
 overhead is inside the wall time, so the idle share is an upper bound.
+With ``--classic`` it then traces the classic table's backward wrapper
+alone, at the main-path shape and at the ddi-like classic blocks, and
+lists every kernel it launches.
 
 Needs a CUDA card.
 """
@@ -73,6 +76,37 @@ def main(steps: int = 5, classic: bool = False, ddi: bool = False,
     for ms, count, name in rows:
         print(f"  {ms / steps:9.3f} ms/step  {count / steps:6.1f}x/step  "
               f"{name[:100]}")
+    if classic:
+        trace_classic_bwd(dev, card)
+
+
+def trace_classic_bwd(dev, card, calls: int = 10) -> None:
+    """The classic table's backward wrapper alone, bf16, at the main-path
+    shape (``measure.classic_kernel_inputs``) and at the ddi-like classic
+    blocks (O = dh = 256), each traced over ``calls`` calls: every device
+    kernel it launches (the zeroed outputs, the slot compaction's ops, the
+    tile kernels), per call."""
+    from lpformer_tpu_torch.ops import pe_attention as pa
+    from lpformer_tpu_torch.presets import DDI_LIKE_CLASSIC_WIDTHS
+    from lpformer_tpu_torch.utils.measure import (
+        bwd_inputs, classic_kernel_inputs,
+    )
+
+    for label, kw in (("main", {}), ("ddi-like classic", dict(
+            widths=DDI_LIKE_CLASSIC_WIDTHS, o=256, dh=256))):
+        a = bwd_inputs(classic_kernel_inputs(dev, torch.bfloat16, **kw))
+        pa.fused_pe_link_attention_bwd(**a)
+        wall_ms, busy_ms, rows = trace_device(
+            lambda: [pa.fused_pe_link_attention_bwd(**a)
+                     for _ in range(calls)], top=40)
+        print(f"classic backward wrapper, {label} shape, "
+              f"{int(a['valid'].sum())} valid slots (traced, {calls} "
+              f"calls): device busy {busy_ms / calls:.4f} ms/call, wall "
+              f"{wall_ms / calls:.4f} ms/call [{card}]")
+        for ms, count, name in rows:
+            print(f"  {ms / calls:9.4f} ms/call  {count / calls:4.1f}x/call"
+                  f"  {name[:100]}")
+        del a
 
 
 if __name__ == "__main__":

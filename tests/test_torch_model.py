@@ -59,11 +59,12 @@ def _configs(mode, **kw):
     return JConfig(**common, **NO_DROP), TConfig(**common)
 
 
-def _run(jd, td, jcfg, tcfg, pallas):
+def _run(jd, td, jcfg, tcfg, pallas, links=None):
     jcfg = dataclasses.replace(jcfg, use_pallas_attention=pallas)
     jp = jlt.init_lpformer(jax.random.PRNGKey(3), jcfg, in_dim=12)
     tp = from_jax_params(jax.tree.map(np.asarray, jp), device="cpu")
-    links = np.concatenate([jd.valid_pos[:12], jd.valid_neg[:4]])
+    if links is None:
+        links = np.concatenate([jd.valid_pos[:12], jd.valid_neg[:4]])
     js, jt = jnp.asarray(links[:, 0]), jnp.asarray(links[:, 1])
     ts, tt = torch.as_tensor(links[:, 0]), torch.as_tensor(links[:, 1])
     jx = jlt.propagate(jp, jcfg, jd.graph)
@@ -139,6 +140,35 @@ def test_wide_layers_match_f32(both, wide):
     np.testing.assert_allclose(tx, jx, rtol=5e-4, atol=5e-5)
     np.testing.assert_allclose(th, jh, rtol=5e-4, atol=5e-5)
     np.testing.assert_allclose(ts, js, rtol=5e-4, atol=5e-5)
+
+
+TABLES = {"combined": {}, "classic": CLASSIC}
+# GCN and link options no other case sets, at dim 16 with 3 GNN layers
+OPTIONS = {"residual": dict(residual=True),
+           "no_ln_no_relu": dict(layer_norm=False, relu=False)}
+
+
+def _degenerate_links(jd):
+    """(u, u) pairs, (0, 0) and a few real links around them."""
+    u = jd.valid_pos[:4, 0]
+    return np.concatenate([np.stack([u, u], 1), [[0, 0]], jd.valid_pos[:4],
+                           [[0, 0]]])
+
+
+@pytest.mark.parametrize("table", list(TABLES))
+@pytest.mark.parametrize("option", list(OPTIONS) + ["degenerate_pairs"])
+def test_options_and_degenerate_pairs_match_f32(both, table, option):
+    """residual=True, the GCN without LayerNorm and ReLU, and (u, u) /
+    (0, 0) links, on both tables, against the JAX Pallas path."""
+    jd, td = both
+    kw = dict(TABLES[table], gnn_layers=3, **OPTIONS.get(option, {}))
+    links = _degenerate_links(jd) if option == "degenerate_pairs" else None
+    (jx, jh, js), (tx, th, ts) = _run(jd, td, *_configs("all", **kw), True,
+                                      links=links)
+    np.testing.assert_allclose(tx, jx, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(th, jh, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(ts, js, rtol=5e-4, atol=5e-5)
+    assert np.isfinite(ts).all()
 
 
 def test_forward_and_scores_match_bf16(both):

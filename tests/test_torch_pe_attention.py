@@ -299,13 +299,32 @@ def test_kernel_input_checks(name, bad, err):
         tpa._check(*t.values())
 
 
+def _class0_count(a, widths, n):
+    """Make class 0 (the first ``widths[0]`` columns) hold exactly n valid
+    slots, the first n of its block in (link, column) order."""
+    valid = a["valid"]
+    block = np.zeros(valid.shape[0] * widths[0], dtype=bool)
+    block[:n] = True
+    valid[:, :widths[0]] = block.reshape(valid.shape[0], -1)
+    for nm in ("ps", "pt"):
+        a[nm] = a[nm] * valid
+    return a
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("tile_plus_one", [False, True])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("o,dh", [(O, DH)] + WIDTHS)
-def test_kernels_match_plain_on_card(bf16, o, dh):
+def test_kernels_match_plain_on_card(bf16, o, dh, tile_plus_one):
+    """Both kernels against their plain versions; with ``tile_plus_one``
+    class 0 holds one slot more than a backward tile. The backward runs
+    under ``set_sync_debug_mode("error")``: a host synchronisation in it
+    (a ``.item()``, a ``nonzero``) fails the test."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     a = _inputs(MISALIGNED, seed=5, bf16=bf16, o=o, dh=dh)
+    if tile_plus_one:
+        a = _class0_count(a, MISALIGNED, tpa.tile_slots(o, dh) + 1)
     t = {n: v.cuda() for n, v in _torch_args(a, bf16=bf16).items()}
     before = (tpa.fused_pe_link_attention.launches,
               tpa.fused_pe_link_attention_bwd.launches)
@@ -315,7 +334,13 @@ def test_kernels_match_plain_on_card(bf16, o, dh):
     g_out = torch.as_tensor(_cot(5, o=o)).cuda()
     args = [t[n] for n in ORDER[:-1]] + [m, l, g_out,
                                          (g_out * (out - t["bias"])).sum(-1)]
-    got_b = tpa.fused_pe_link_attention_bwd(*args, MISALIGNED)
+    tpa._load_bwd()      # the first call's build is not the backward's
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got_b = tpa.fused_pe_link_attention_bwd(*args, MISALIGNED)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert (tpa.fused_pe_link_attention.launches,
             tpa.fused_pe_link_attention_bwd.launches) == (before[0] + 1,

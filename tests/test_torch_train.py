@@ -190,6 +190,47 @@ def test_wide_loss_and_grads_match_jax(both, wide):
                                    **GRAD_TOL)
 
 
+TABLES = {"combined": {},
+          "classic": dict(budget_combined=None, budget_cn=16,
+                          budget_onehop=32, budget_non1hop=32)}
+OPTIONS = {"residual": dict(residual=True),
+           "no_ln_no_relu": dict(layer_norm=False, relu=False)}
+
+
+def _degenerate_batch(ds):
+    """``_batch`` with (u, u) and (0, 0) positives and negatives."""
+    src, tgt, w, neg = _batch(ds, 0)
+    src, tgt, neg = src.copy(), tgt.copy(), neg.copy()
+    tgt[:6] = src[:6]
+    src[6:8] = tgt[6:8] = 0
+    neg[1, :4] = neg[0, :4]
+    neg[:, 4:6] = 0
+    return src, tgt, w, neg
+
+
+@pytest.mark.parametrize("table", list(TABLES))
+@pytest.mark.parametrize("option", list(OPTIONS) + ["degenerate_pairs"])
+def test_options_and_degenerate_pairs_loss_and_grads_match_jax(both, table,
+                                                               option):
+    """dim 16, 3 GNN layers: residual=True, the GCN without LayerNorm and
+    ReLU, and (u, u) / (0, 0) links; one step's loss and every grad leaf
+    on both tables against the JAX Pallas kernel pair."""
+    jd, td = both
+    common = dict(COMMON, gnn_layers=3, **TABLES[table],
+                  **OPTIONS.get(option, {}))
+    jcfg, jp, tp = _params(True, common)
+    batch = (_degenerate_batch(td) if option == "degenerate_pairs"
+             else _batch(td, 0))
+    jl, jg = _jax_loss_grads(jd, jcfg, jp, batch)
+    tl, tg = _torch_loss_grads(td, TConfig(**common), tp, batch)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    jleaves = _jleaves(jg)
+    assert len(jleaves) == len(tg)
+    for (path, want), got in zip(jleaves, tg):
+        np.testing.assert_allclose(got.numpy(), want, err_msg=path,
+                                   **GRAD_TOL)
+
+
 def _opt_tree(seed):
     rng = np.random.default_rng(seed)
     r = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
