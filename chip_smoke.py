@@ -13,9 +13,12 @@ Phases, each printing its own lines:
      its main-path shapes, with CUDA-event times, the work's bound and a
      yardstick: the combined table's pair at B=4096, C=128, O=dh=128, K=3
      (bf16 and f32), then at the ddi-like widths O=dh=256 and at O=256,
-     dh=128 (bf16); the classic table's pair at C=320 (blocks 64 | 128 |
-     128), O=dh=128 (bf16 and f32), then at the ddi-like classic blocks
-     128 | 320 | 320, O=dh=256 (bf16); the scatter over [4096, 128] rows
+     dh=128 (bf16), these with the collab-like draw's ~10 valid slots a
+     link, and at O=dh=256 with the ddi-like preset's ~43 (bf16,
+     measure.ddi_link_counts); the classic table's pair at C=320 (blocks
+     64 | 128 | 128), O=dh=128 (bf16 and f32), then at the ddi-like
+     classic blocks 128 | 320 | 320, O=dh=256 (bf16); the scatter over
+     [4096, 128] rows
      into 50,001 with ``index_add_``; the per-link attention pair at the
      bench's A/B shape (B=4096, C=128, Dk=256, O=128, 80% valid) in f32 and
      bf16 (phase 7 times their yardstick, the A/B's torch composition);
@@ -132,7 +135,9 @@ def tables():
             inputs=measure.kernel_inputs, bound=measure.kernel_bound_ms,
             bwd_bound=measure.bwd_bound_ms,
             wide=[("ddi-like", dict(o=256, dh=256)),
-                  ("trans_layers=2 layer 0", dict(o=256, dh=128))],
+                  ("trans_layers=2 layer 0", dict(o=256, dh=128)),
+                  ("ddi-like density", dict(
+                      o=256, dh=256, counts=measure.ddi_link_counts))],
             fwd_entry=("fused_pe_link_attention_mixed_fwd",
                        "lpformer_tpu_torch/csrc/pe_attention_mixed_fwd.cu",
                        "lpformer_tpu/ops/pallas/pe_attention_mixed.py:77"),
@@ -865,12 +870,14 @@ def phase_train(dev, card, ds, layout, tabs, cfg=None, batch=None, epochs=1,
     dl = abs(float(loss_k) - float(loss_p))
     rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
            for a, b in zip(grads_k, grads_p)]
+    worst = [p for p, _ in optim.tree_leaves_with_path(params)][
+        rel.index(max(rel))]
     finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
     log(f"train step {layout} (dim {cfg.dim}) kernels vs plain: loss "
         f"{float(loss_k):.6f} vs {float(loss_p):.6f} (|diff| {dl:.2e}, tol "
         f"{STEP_LOSS_TOL}); grad leaves {len(rel)}, max rel L2 err "
-        f"{max(rel):.2e} (median {statistics.median(rel):.2e}, tol "
-        f"{STEP_GRAD_TOL})")
+        f"{max(rel):.2e} at {'/'.join(map(str, worst))} (median "
+        f"{statistics.median(rel):.2e}, tol {STEP_GRAD_TOL})")
     if dl > STEP_LOSS_TOL or max(rel) > STEP_GRAD_TOL or not finite:
         raise AssertionError("training step through the kernels disagrees "
                              "with the plain path")

@@ -1,32 +1,49 @@
 // Fused PE + per-link attention, backward pass, for Hopper (sm_90a), as
-// class-uniform tiles of compacted valid slots: the kernels behind
-// csrc/pe_attention_bwd.cu (the classic class-blocked table).
+// class-uniform tiles of compacted valid slots: the kernels behind both
+// context-table layouts' backward, csrc/pe_attention_bwd.cu (the classic
+// class-blocked table) and csrc/pe_attention_mixed_bwd.cu (the combined
+// class-tagged table).
 //
-// Replaces the TPU kernel lpformer_tpu/ops/pallas/pe_attention.py:
+// Replaces the TPU kernels lpformer_tpu/ops/pallas/pe_attention.py:
 // _bwd_kernel (:244, with _dir_bwd :219) behind _bwd_call (:367), reached
-// from the custom VJP _fused_bwd (:460).
+// from the custom VJP _fused_bwd (:460), and
+// lpformer_tpu/ops/pallas/pe_attention_mixed.py: _bwd_kernel (:250, with
+// _dir_bwd_mixed :221) behind _bwd_call (:366), reached from _fused_bwd
+// (:468).
 //
-// Math (as csrc/pe_attention_bwd.cuh has it): recompute each valid slot's
-// forward from the saved softmax statistics m, l, then with g_out [B, O]
-// and delta[b] = g_out[b] . (out[b] - bias):
+// Math. The forward, for each link b and each valid slot c of class k:
+//   g_k(x) = relu(y),  y = LN_k(x @ W1_k + b1_k)   (LN eps 1e-5, gain g_k,
+//            bias b_k; h = g_k(x) rounded to W2f's type)
+//   xj     = keys[b,c] + ha W2f_k + hb W2f_k + cbias_k,  with ha = g_k([ps,
+//            pt]) and hb = g_k([pt, ps]) (ps, pt the slot's PPR values)
+//   s      = sum_o att[o] lrelu(xj[o] q[b,o]),  lrelu the leaky ReLU (0.2)
+//   out[b] = sum_c softmax_c(s) xj + bias
+// The backward recomputes each valid slot's forward from the saved softmax
+// statistics m, l, then with g_out [B, O] and delta[b] = g_out[b] .
+// (out[b] - bias):
 //   alpha  = exp(s - m) / max(l, 1e-16),  dlogit = alpha (g_out . xj - delta)
 //   dxj    = alpha g_out + dlogit att lrelu'(xj q) q;  dkeys = dxj (keys' type)
 //   dq += dlogit att lrelu'(xj q) xj;  datt += dlogit lrelu(xj q);  dcb_k += dxj
-//   dxjc = dxj and ha, hb = each direction's h, all rounded to W2f's type
+//   dxjc = dxj rounded to W2f's type
 //   dw2_k += ha^T dxjc + hb^T dxjc;  dh = dxjc W2f_k^T (both directions)
-//   then each direction's ReLU and LayerNorm backward into the grads of
-//   g_k, b_k and the packed layer-1 rows (w1a_k | w1b_k | b1_k).
+//   dya = dh [ya > 0], dyb = dh [yb > 0];  dg_k += dya xhat_a + dyb xhat_b;
+//   db_k += dya + dyb;  each direction's LayerNorm backward
+//   dp = rsqrt(var + eps) (dy g - mean(dy g) - xhat mean(dy g xhat)), and
+//   the packed layer-1 rows: dw1a_k += ps dpa + pt dpb, dw1b_k += pt dpa +
+//   ps dpb, db1_k += dpa + dpb.
 //
 // What bounds it on an H100: the bytes of dkeys [B, C, O], most of it the
-// dead slots' zero rows (335 MB at the collab-like classic shape, bf16),
-// which the wrapper writes with one memset; the valid slots' three dh x O
-// products are microseconds of tensor-core time.
+// dead slots' zero rows (335 MB at the collab-like classic shape, 134 MB
+// at the collab-like combined one, bf16), which the wrapper writes with
+// one memset; the valid slots' three dh x O products are microseconds of
+// tensor-core time.
 //
 // Design. The wrapper lists the valid slots in (class, link, column) order
-// (ops/pe_attention.py:compact_slots, device ops, no host sync) with the
-// classes' offsets on the device. Nothing here asks where a slot's class
-// comes from: a tile's class is its place in that list, so another table
-// layout needs only its own compaction.
+// with the classes' offsets on the device (device ops, no host sync):
+// ops/pe_attention.py:compact_slots for the classic table's column blocks,
+// ops/pe_attention_mixed.py:compact_tagged_slots for the combined table's
+// class tags. Nothing here asks where a slot's class comes from: a tile's
+// class is its place in that list.
 //   * main kernel: a persistent block takes tiles of TS slots of one class
 //     (64 with 8 warps, two blocks an SM; or, when O or dh passes 128, 32
 //     with 16 warps, one block an SM). Per tile, after every thread has
@@ -950,8 +967,8 @@ int launch_tiles(const void* keys, const void* ps, const void* pt,
   return (int)cudaGetLastError();
 }
 
-// Tiles of `ts` slots, 64 or 32 (ops/pe_attention.py:tile_slots: 64 up to
-// O, dh of 128, 32 past it, where shared memory is short).
+// Tiles of `ts` slots, 64 or 32 (ops/pe_attention_mixed.py:tile_slots: 64
+// up to O, dh of 128, 32 past it, where shared memory is short).
 template <typename T>
 int launch_tiles_bwd(const void* keys, const void* ps, const void* pt,
                      const void* slots, const void* offsets, const void* q,

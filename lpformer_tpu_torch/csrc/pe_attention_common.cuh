@@ -1,14 +1,17 @@
 // Device helpers of the fused PE + per-link attention kernels, and the two
-// ways a context slot's class is found.
+// ways the forward kernel finds a context slot's class.
 //
-// The kernels of csrc/pe_attention_fwd.cuh and csrc/pe_attention_bwd.cuh
-// are templates over a class source:
+// The forward kernel of csrc/pe_attention_fwd.cuh is a template over a
+// class source:
 //   * TaggedClasses: the combined table, whose slots carry their class in
-//     a [B, C] int32 tensor (ecls); used by pe_attention_mixed_{fwd,bwd}.cu;
+//     a [B, C] int32 tensor (ecls); used by pe_attention_mixed_fwd.cu;
 //   * BlockedClasses: the classic table, whose columns are K contiguous
 //     class blocks [cn | 1-hop | >1-hop]; the class of a slot is the block
 //     that holds its column, found from the K block ends passed by value,
-//     so no class tensor exists; used by pe_attention_{fwd,bwd}.cu.
+//     so no class tensor exists; used by pe_attention_fwd.cu (and
+//     pe_attention_bwd.cu checks its widths with blocked_classes).
+// The backward kernels (csrc/pe_attention_bwd_tiles.cuh) need neither: a
+// tile's class is its place in the wrapper's list of compacted slots.
 // Any widths: lane `lane` of a warp owns the output columns 4*lane + 128*j
 // + i (i < 4, every j with the column below O) and the hidden units d =
 // lane + 32*j (d < dh). A row of O values is read 4 columns a lane, as one
@@ -34,12 +37,6 @@ struct TaggedClasses {
   __device__ __forceinline__ int of(size_t bc, int) const {
     return min(max(ecls[bc], 0), K - 1);
   }
-  // the columns class k may hold, and whether slot (bc, c) is of class k
-  __device__ __forceinline__ int begin(int) const { return 0; }
-  __device__ __forceinline__ int end(int, int C) const { return C; }
-  __device__ __forceinline__ bool holds(size_t bc, int c, int k) const {
-    return of(bc, c) == k;
-  }
 };
 
 struct BlockedClasses {
@@ -48,13 +45,6 @@ struct BlockedClasses {
   int stop[3];
   __device__ __forceinline__ int of(size_t, int c) const {
     return (c >= stop[0]) + (c >= stop[1]);
-  }
-  __device__ __forceinline__ int begin(int k) const {
-    return k ? stop[k - 1] : 0;
-  }
-  __device__ __forceinline__ int end(int k, int) const { return stop[k]; }
-  __device__ __forceinline__ bool holds(size_t, int, int) const {
-    return true;
   }
 };
 
@@ -237,19 +227,9 @@ __device__ __forceinline__ void transpose_step(float* p, int lane) {
   }
 }
 
-// Sums each of the 16 values p[0..15] over the warp's lanes and returns the
-// sum of p[lane & 15] (to lanes l and l + 16 alike): 16 shuffles for 16
-// sums, every index known at compile time so p stays in registers.
-__device__ __forceinline__ float transpose_reduce16(float* p, int lane) {
-  transpose_step<8>(p, lane);
-  transpose_step<4>(p, lane);
-  transpose_step<2>(p, lane);
-  transpose_step<1>(p, lane);
-  return p[0] + __shfl_xor_sync(kFull, p[0], 16);
-}
-
 // Sums each of the 8 values p[0..7] over the warp's lanes and returns the
-// sum of p[lane & 7] (to the four lanes that share lane & 7).
+// sum of p[lane & 7] (to the four lanes that share lane & 7); every index
+// is known at compile time, so p stays in registers.
 __device__ __forceinline__ float transpose_reduce8(float* p, int lane) {
   transpose_step<4>(p, lane);
   transpose_step<2>(p, lane);

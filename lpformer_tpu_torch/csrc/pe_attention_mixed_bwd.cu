@@ -5,40 +5,46 @@
 // _bwd_kernel (:250, with _dir_bwd_mixed :221) behind _bwd_call (:366),
 // reached from the custom VJP _fused_bwd (:468).
 //
-// The kernels are csrc/pe_attention_bwd.cuh's templates (their math,
-// bound and two-launch design are described there) with TaggedClasses:
-// the class of slot (b, c) is ecls[b, c], so the dw2 reduction of class k
-// walks every column and keeps the slots tagged k.
+// The kernels are csrc/pe_attention_bwd_tiles.cuh's (their math, bound and
+// design are described there): tiles of the valid slots of one class, in
+// the order ops/pe_attention_mixed.py:compact_tagged_slots lists them. A
+// valid slot's class is ecls[b, c] clamped into [0, K), as the forward
+// kernel reads it, so a link's slots lie in up to K runs of the list, one
+// per class, and dq takes one f32 atomic per column of each run (more
+// where a tile boundary cuts a run). The TPU kernel sums the weight grads in scratch across its
+// sequential sweep of the links, dW2f in f32 over the whole grid, cast
+// once (:485). Here the small grads go through per-block shared-memory
+// sums and one f32 atomic per element and block, and the dw2 launch
+// reduces class k over its slots alone, in f32, rounded once by the
+// caller: the same rounding. Dead slots' dkeys rows and the dq rows of
+// links with no valid slot are zero: the caller zeroes dkeys and dq and
+// the kernels write the valid rows.
 
-#include "pe_attention_bwd.cuh"
+#include "pe_attention_bwd_tiles.cuh"
 
 extern "C" {
 
 // Launch both kernels on `stream`; returns cudaGetLastError() after the
-// launches (0 = ok). bf16 != 0: keys, w2f and dkeys are bfloat16, else
-// float32. valid is uint8/bool, ecls int32, everything else float32.
-// dkeys and dq are written in full; dw1cat [3K, dh], dg, db [K, dh],
-// dcb [K, O], datt [O] and dw2 [K, dh, O] are summed into and must be
-// zeroed by the caller.
+// launches (0 = ok). slots [B*C] int32: the valid slots' ids b*C + c in
+// (class, link, column) order; offsets [K+1] int32: class k's slots at
+// [offsets[k], offsets[k+1]), on the device. ts: slots of a tile, 64 or
+// 32. bf16 != 0: keys, w2f and dkeys are bfloat16, else float32;
+// everything else float32. dkeys [B, C, O], dq [B, O], dw1cat [3K, dh],
+// dg, db [K, dh], dcb [K, O], datt [O] and dw2 [K, dh, O] are summed into
+// and must be zeroed by the caller.
 int pe_attention_mixed_bwd(
-    const void* keys, const void* ps, const void* pt, const void* valid,
-    const void* ecls, const void* q, const void* g_out, const void* m,
+    const void* keys, const void* ps, const void* pt, const void* slots,
+    const void* offsets, const void* q, const void* g_out, const void* m,
     const void* l, const void* delta, const void* w1, const void* b1,
     const void* g, const void* bln, const void* w2f, const void* cbias,
     const void* att, void* dkeys, void* dq, void* dw1cat, void* dg,
     void* db, void* dcb, void* datt, void* dw2, int B, int C, int O, int dh,
-    int K, int bf16, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const TaggedClasses cls{(const int32_t*)ecls, K};
-  if (bf16)
-    return launch_bwd<__nv_bfloat16>(keys, ps, pt, valid, cls, q, g_out, m,
-                                     l, delta, w1, b1, g, bln, w2f, cbias,
-                                     att, dkeys, dq, dw1cat, dg, db, dcb,
-                                     datt, dw2, B, C, O, dh, K, s);
-  return launch_bwd<float>(keys, ps, pt, valid, cls, q, g_out, m, l, delta,
-                           w1, b1, g, bln, w2f, cbias, att, dkeys, dq,
-                           dw1cat, dg, db, dcb, datt, dw2, B, C, O, dh, K,
-                           s);
+    int K, int ts, int bf16, void* stream) {
+  auto launch = bf16 ? &launch_tiles_bwd<__nv_bfloat16>
+                     : &launch_tiles_bwd<float>;
+  return launch(keys, ps, pt, slots, offsets, q, g_out, m, l, delta, w1, b1,
+                g, bln, w2f, cbias, att, dkeys, dq, dw1cat, dg, db, dcb, datt,
+                dw2, B, C, O, dh, K, ts, (cudaStream_t)stream);
 }
 
 const char* pe_attention_mixed_bwd_error_string(int err) {

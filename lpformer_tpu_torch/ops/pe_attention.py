@@ -49,21 +49,19 @@ import torch
 
 from lpformer_tpu_torch.ops._cuda import bind, build_cuda, check_tensors
 from lpformer_tpu_torch.ops.pe_attention_mixed import (
-    HEADERS, attend, attend_backward, backward_cotangent, ln_affine,
-    ln_backward, split_layer1_grads,
+    BWD_HEADERS, FWD_HEADERS, attend, attend_backward, backward_cotangent,
+    ln_affine, ln_backward, split_layer1_grads, tile_slots,
 )
 
 _LIB = None
 _LIB_BWD = None
-# what csrc/pe_attention_bwd.cu includes: the tile kernels over compacted
-# valid slots and the shared device helpers
-BWD_HEADERS = ("pe_attention_common.cuh", "pe_attention_bwd_tiles.cuh")
 
 
 def build() -> Tuple[str, str]:
     """Compile the forward kernel (cached by source hash). Returns (library
     path, compiler output, which holds ptxas's register and spill report)."""
-    return build_cuda("pe_attention_fwd", "pe_attention_fwd.cu", HEADERS)
+    return build_cuda("pe_attention_fwd", "pe_attention_fwd.cu",
+                      FWD_HEADERS)
 
 
 def build_bwd() -> Tuple[str, str]:
@@ -117,13 +115,6 @@ def _pe_blocks(ps, pt, w1, b1, g, b, w2f, class_widths):
             dirs.append((xhat, r, y, torch.relu(y).to(kdt).float()))
         out.append((dirs, dirs[0][3] @ w2, dirs[1][3] @ w2))
     return out
-
-
-def tile_slots(o, dh):
-    """Valid slots in one tile of the backward kernels: 64, or 32 when O or
-    dh passes 128 (a block's shared memory holds the tile's [TS, 2 dh] and
-    [TS, max(O, dh)] arrays beside W2f_k)."""
-    return 64 if max(o, dh) <= 128 else 32
 
 
 def compact_slots(valid, class_widths):

@@ -15,13 +15,23 @@ forward launches the hand-written CUDA kernel
 sm_90a at first use, loaded with ctypes) and runs
 ``fused_pe_link_attention_mixed_plain``, the same math in torch ops over
 [B, C], on CPU tensors. Its backward, from the saved m, l and out, is
-``fused_pe_link_attention_mixed_bwd``: the CUDA kernel
-``csrc/pe_attention_mixed_bwd.cu`` on CUDA tensors,
-``fused_pe_link_attention_mixed_bwd_plain`` on CPU tensors. There is no
-fallback between kernel and plain version. The caller side of the
-backward stays in torch as the JAX package's ``_fused_bwd`` has it:
-delta = g_out . (out - bias), dbias = sum_b g_out, and the packed
-layer-1 grad split back into w1[:, 0], w1[:, 1] and b1.
+``fused_pe_link_attention_mixed_bwd``: on CUDA tensors the kernels
+``csrc/pe_attention_mixed_bwd.cu``, which take tiles of one class's valid
+slots as ``compact_tagged_slots`` lists them (device ops, no host
+synchronisation); ``fused_pe_link_attention_mixed_bwd_plain`` on CPU
+tensors. There is no fallback between kernel and plain version. The
+caller side of the backward stays in torch as the JAX package's
+``_fused_bwd`` has it: delta = g_out . (out - bias), dbias = sum_b g_out,
+and the packed layer-1 grad split back into w1[:, 0], w1[:, 1] and b1.
+
+Rounding points are the TPU kernel's: the hidden activation h is rounded
+to W2f's type before the W2f products, the key cotangent dxj before the
+dW2f and dh products, and dkeys is in the keys' type. The JAX mixed
+backward keeps dW2f in f32 scratch across its whole grid
+(lpformer_tpu/ops/pallas/pe_attention_mixed.py:230, :271, :363) and casts
+it once (:485); the kernels here sum a class's dW2f in f32 and
+``MixedOp.backward`` rounds it once, so the two agree up to the order of
+the f32 additions.
 """
 from __future__ import annotations
 
@@ -34,9 +44,12 @@ from lpformer_tpu_torch.ops.segment import masked_softmax
 
 _NEG = -1e30
 _LN_EPS = 1e-5
-# the kernel templates and device helpers both tables' kernels include
-HEADERS = ("pe_attention_common.cuh", "pe_attention_fwd.cuh",
-           "pe_attention_bwd.cuh")
+# what both tables' forward kernels include: the template and the shared
+# device helpers
+FWD_HEADERS = ("pe_attention_common.cuh", "pe_attention_fwd.cuh")
+# ... and both tables' backward kernels: the tile kernels over compacted
+# valid slots and the shared device helpers
+BWD_HEADERS = ("pe_attention_common.cuh", "pe_attention_bwd_tiles.cuh")
 _LIB = None
 _LIB_BWD = None
 
@@ -45,13 +58,13 @@ def build() -> Tuple[str, str]:
     """Compile the forward kernel (cached by source hash). Returns (library
     path, compiler output, which holds ptxas's register and spill report)."""
     return build_cuda("pe_attention_mixed_fwd", "pe_attention_mixed_fwd.cu",
-                      HEADERS)
+                      FWD_HEADERS)
 
 
 def build_bwd() -> Tuple[str, str]:
     """Compile the backward kernels, as :func:`build`."""
     return build_cuda("pe_attention_mixed_bwd", "pe_attention_mixed_bwd.cu",
-                      HEADERS)
+                      BWD_HEADERS)
 
 
 def _load():
@@ -65,9 +78,34 @@ def _load():
 def _load_bwd():
     global _LIB_BWD
     if _LIB_BWD is None:
-        _LIB_BWD = bind(build_bwd()[0], "pe_attention_mixed_bwd", 25, 6,
+        _LIB_BWD = bind(build_bwd()[0], "pe_attention_mixed_bwd", 25, 7,
                         "pe_attention_mixed_bwd_error_string")
     return _LIB_BWD
+
+
+def tile_slots(o, dh):
+    """Valid slots in one tile of the backward kernels: 64, or 32 when O or
+    dh passes 128 (a block's shared memory holds the tile's [TS, 2 dh] and
+    [TS, max(O, dh)] arrays beside W2f_k)."""
+    return 64 if max(o, dh) <= 128 else 32
+
+
+def compact_tagged_slots(valid, ecls, k):
+    """The combined table's valid slots in (class, link b, column c)
+    order, as the backward kernels' tiles take them: (slots [B*C] int32,
+    the slot ids b*C + c of the valid slots first, then the dead ones, each
+    in a place of its own; offsets [K+1] int32, class k's slots at
+    [offsets[k], offsets[k+1])). A valid slot's class is ecls clamped into
+    [0, K), as the forward kernel reads it; a dead slot's ecls is not read.
+    Device ops only, with no host synchronisation: a stable sort of the
+    slots by a one-byte key, the class or K for a dead slot (one radix
+    pass), and a binary search of the sorted keys for the offsets."""
+    key = torch.where(valid.reshape(-1), ecls.reshape(-1).clamp(0, k - 1),
+                      k).to(torch.uint8)
+    keys, order = torch.sort(key, stable=True)
+    bounds = torch.arange(k + 1, dtype=torch.uint8, device=key.device)
+    offsets = torch.searchsorted(keys, bounds, out_int32=True)
+    return order.int(), offsets
 
 
 def ln_affine(x0, x1, w1a, w1b, b1, g, b):
@@ -178,6 +216,8 @@ def _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
         want["bias"] = (bias, torch.float32, (o,))
     for name, t in extra.items():
         want[name] = (t, torch.float32, per_link[name])
+    if k > 3:
+        raise ValueError(f"the kernels take K <= 3 classes, got {k}")
     check_tensors(keys, want)
 
 
@@ -286,25 +326,28 @@ def fused_pe_link_attention_mixed_bwd(
     k, _, dh = w1.shape
     dev = keys.device
     f32 = dict(dtype=torch.float32, device=dev)
-    dkeys = torch.empty(keys.shape, dtype=keys.dtype, device=dev)
-    dq = torch.empty((bsz, o), **f32)
+    # the kernels write the valid slots' rows only (dead rows stay zero)
+    # and sum dq with one atomic per run of a link's slots in a tile
+    dkeys = torch.zeros(keys.shape, dtype=keys.dtype, device=dev)
+    dq = torch.zeros((bsz, o), **f32)
     dw1cat = torch.zeros((3 * k, dh), **f32)
     dg = torch.zeros((k, dh), **f32)
     db = torch.zeros((k, dh), **f32)
     dw2 = torch.zeros((k, dh, o), **f32)
     dcb = torch.zeros((k, o), **f32)
     datt = torch.zeros(att.shape, **f32)
+    slots, offsets = compact_tagged_slots(valid, ecls, k)
     lib = _load_bwd()
     with torch.cuda.device(dev):
         err = lib.pe_attention_mixed_bwd(
-            keys.data_ptr(), ps.data_ptr(), pt.data_ptr(), valid.data_ptr(),
-            ecls.data_ptr(), q.data_ptr(), g_out.data_ptr(), m.data_ptr(),
+            keys.data_ptr(), ps.data_ptr(), pt.data_ptr(), slots.data_ptr(),
+            offsets.data_ptr(), q.data_ptr(), g_out.data_ptr(), m.data_ptr(),
             l.data_ptr(), delta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             g.data_ptr(), b.data_ptr(), w2f.data_ptr(), cbias.data_ptr(),
             att.data_ptr(), dkeys.data_ptr(), dq.data_ptr(),
             dw1cat.data_ptr(), dg.data_ptr(), db.data_ptr(), dcb.data_ptr(),
             datt.data_ptr(), dw2.data_ptr(), bsz, c, o, dh, k,
-            int(keys.dtype == torch.bfloat16),
+            tile_slots(o, dh), int(keys.dtype == torch.bfloat16),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

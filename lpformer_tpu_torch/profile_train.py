@@ -14,8 +14,9 @@ kernels' self time), the device idle share, and the kernels that take the
 most device time, with their launch counts. The profiler's own host
 overhead is inside the wall time, so the idle share is an upper bound.
 With ``--classic`` it then traces the classic table's backward wrapper
-alone, at the main-path shape and at the ddi-like classic blocks, and
-lists every kernel it launches.
+alone, at the main-path shape and at the ddi-like classic blocks, and with
+``--ddi`` the combined table's, at the main-path shape and at O = dh = 256
+with the ddi-like density; each lists every kernel it launches.
 
 Needs a CUDA card.
 """
@@ -76,30 +77,42 @@ def main(steps: int = 5, classic: bool = False, ddi: bool = False,
     for ms, count, name in rows:
         print(f"  {ms / steps:9.3f} ms/step  {count / steps:6.1f}x/step  "
               f"{name[:100]}")
-    if classic:
-        trace_classic_bwd(dev, card)
+    if classic or ddi:
+        trace_bwd(dev, card, classic)
 
 
-def trace_classic_bwd(dev, card, calls: int = 10) -> None:
-    """The classic table's backward wrapper alone, bf16, at the main-path
-    shape (``measure.classic_kernel_inputs``) and at the ddi-like classic
-    blocks (O = dh = 256), each traced over ``calls`` calls: every device
-    kernel it launches (the zeroed outputs, the slot compaction's ops, the
-    tile kernels), per call."""
+def trace_bwd(dev, card, classic: bool, calls: int = 10) -> None:
+    """A table's backward wrapper alone, bf16, each shape traced over
+    ``calls`` calls: every device kernel it launches (the zeroed outputs,
+    the slot compaction's ops, the tile kernels), per call. The classic
+    table at the main-path shape (``measure.classic_kernel_inputs``) and at
+    the ddi-like classic blocks (O = dh = 256); the combined table at the
+    main-path shape (``measure.kernel_inputs``) and at O = dh = 256 with
+    the ddi-like density (``measure.ddi_link_counts``)."""
     from lpformer_tpu_torch.ops import pe_attention as pa
+    from lpformer_tpu_torch.ops import pe_attention_mixed as pam
     from lpformer_tpu_torch.presets import DDI_LIKE_CLASSIC_WIDTHS
     from lpformer_tpu_torch.utils.measure import (
-        bwd_inputs, classic_kernel_inputs,
+        bwd_inputs, classic_kernel_inputs, ddi_link_counts, kernel_inputs,
     )
 
-    for label, kw in (("main", {}), ("ddi-like classic", dict(
-            widths=DDI_LIKE_CLASSIC_WIDTHS, o=256, dh=256))):
-        a = bwd_inputs(classic_kernel_inputs(dev, torch.bfloat16, **kw))
-        pa.fused_pe_link_attention_bwd(**a)
+    if classic:
+        table, bwd, inputs = ("classic", pa.fused_pe_link_attention_bwd,
+                              classic_kernel_inputs)
+        wide = ("ddi-like classic", dict(widths=DDI_LIKE_CLASSIC_WIDTHS,
+                                         o=256, dh=256))
+    else:
+        table, bwd, inputs = ("combined",
+                              pam.fused_pe_link_attention_mixed_bwd,
+                              kernel_inputs)
+        wide = ("ddi-like density", dict(o=256, dh=256,
+                                         counts=ddi_link_counts))
+    for label, kw in (("main", {}), wide):
+        a = bwd_inputs(inputs(dev, torch.bfloat16, **kw))
+        bwd(**a)
         wall_ms, busy_ms, rows = trace_device(
-            lambda: [pa.fused_pe_link_attention_bwd(**a)
-                     for _ in range(calls)], top=40)
-        print(f"classic backward wrapper, {label} shape, "
+            lambda: [bwd(**a) for _ in range(calls)], top=40)
+        print(f"{table} backward wrapper, {label} shape, "
               f"{int(a['valid'].sum())} valid slots (traced, {calls} "
               f"calls): device busy {busy_ms / calls:.4f} ms/call, wall "
               f"{wall_ms / calls:.4f} ms/call [{card}]")

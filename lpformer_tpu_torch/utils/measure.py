@@ -118,6 +118,18 @@ def _link_counts(g, b, c):
                 torch.full((b,), c, device=g.device))))
 
 
+def ddi_link_counts(g, b, c):
+    """Valid slots per link at the ddi-like preset's density on the
+    combined table of 128 (mean 44.17, p50 36, p99 95; PERF.md section 4),
+    drawn on the generator's device: 68% of the links with 8-48 valid
+    slots and 32% with 55-95 (mean ~42.6, p50 37, p99 94 at B = 4096);
+    the caller clamps them to the row's width c."""
+    d = dict(generator=g, device=g.device)
+    u = torch.rand(b, **d)
+    return torch.where(u < 0.68, torch.randint(8, 49, (b,), **d),
+                       torch.randint(55, 96, (b,), **d))
+
+
 def _weights(g, valid, b, c, o, dh, k, dtype, ecls):
     """Keys, PPR values, q and K classes' weights around ``valid``, and
     with ``ecls`` a class per valid slot, mixed; drawn on the generator's
@@ -140,15 +152,15 @@ def _weights(g, valid, b, c, o, dh, k, dtype, ecls):
     return a
 
 
-def kernel_inputs(dev, dtype, seed=0, b=B, c=C, o=O, dh=DH, k=K):
+def kernel_inputs(dev, dtype, seed=0, b=B, c=C, o=O, dh=DH, k=K,
+                  counts=_link_counts):
     """Inputs of fused_pe_link_attention_mixed, drawn on ``dev`` (the wide
     shapes' inputs take seconds to draw on the host): each link's row
-    front-compacted with ``_link_counts``' spread, classes mixed per
-    slot."""
+    front-compacted with ``counts``' spread (the collab-like one by
+    default, or ``ddi_link_counts``), classes mixed per slot."""
     g = torch.Generator(device=dev).manual_seed(seed)
-    counts = _link_counts(g, b, c)
     valid = (torch.arange(c, device=dev)[None, :]
-             < counts.clamp(max=c)[:, None])
+             < counts(g, b, c).clamp(max=c)[:, None])
     return _weights(g, valid, b, c, o, dh, k, dtype, ecls=True)
 
 

@@ -1,10 +1,13 @@
-"""The classic-table backward's tile algorithm (csrc/pe_attention_bwd_tiles.cuh)
-on the CPU: the slot compaction its wrapper runs, and a test-only mirror of
-its kernels' arithmetic in torch, held to the plain backward and to the
-JAX package's Pallas VJP (interpret mode).
+"""The backward's tile algorithm (csrc/pe_attention_bwd_tiles.cuh) on the
+CPU, over the classic table: the slot compaction its wrapper runs, and a
+test-only mirror of its kernels' arithmetic in torch, held to the plain
+backward and to the JAX package's Pallas VJP (interpret mode). The
+combined table's compaction feeds the same mirror in
+``test_torch_pe_attention_mixed_tiles.py``.
 
 The mirror walks what the kernels walk: the valid slots compacted in
-(class, link, column) order; tiles of TS slots of one class; [Ha | Hb]
+(class, link, column) order, as a compaction lists them (slots and
+offsets); tiles of TS slots of one class; [Ha | Hb]
 stacked along the reduction axis against [W2f_k ; W2f_k]; dq summed along
 each link's run of rows in a tile; the weight grads summed per tile; dW2
 as a split-K product over chunks of a class's slots, 64-slot steps cut
@@ -47,16 +50,16 @@ def _runs(links):
     return list(zip(cut, cut[1:] + [len(links)]))
 
 
-def mirror_bwd(keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, m, l,
-               g_out, delta, class_widths, ts=8, step=8, nchunk=3,
-               stats=None):
-    """The tile kernels' algorithm in torch; returns what the plain backward
-    returns. ``stats`` (a dict) collects the number of tiles and of link
-    runs a tile boundary cut."""
+def mirror_bwd(keys, ps, pt, q, w1, b1, g, b, w2f, cbias, att, m, l, g_out,
+               delta, slots, offsets, ts=8, step=8, nchunk=3, stats=None):
+    """The tile kernels' algorithm in torch over the valid slots a
+    compaction lists (``slots``, class k's at [offsets[k],
+    offsets[k+1])); returns what the plain backward returns. ``stats`` (a
+    dict) collects the number of tiles and of link runs a tile boundary
+    cut."""
     k_n, _, dh = w1.shape
     bsz, c, o = keys.shape
     kdt = w2f.dtype
-    slots, offsets = tpa.compact_slots(valid, class_widths)
     off = offsets.tolist()
     f32 = dict(dtype=torch.float32)
     dkeys = torch.zeros(keys.shape, dtype=keys.dtype).reshape(-1, o)
@@ -129,6 +132,13 @@ def mirror_bwd(keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, m, l,
     return dkeys.reshape(keys.shape), dq, dw1cat, dg, db, dw2, dcb, datt
 
 
+def classic_mirror(args, widths, **kw):
+    """``mirror_bwd`` over ``compact_slots``' list, from the classic plain
+    backward's arguments ``args`` (BWD_ORDER, then m, l, g_out, delta)."""
+    slots, offsets = tpa.compact_slots(args[3], widths)
+    return mirror_bwd(*args[:3], *args[4:], slots, offsets, **kw)
+
+
 def _bwd_args(a, widths):
     """The backward's inputs from the forward inputs ``a`` (numpy): the
     plain forward's m, l and delta for a cotangent from ``_cot``."""
@@ -188,7 +198,7 @@ def test_mirror_matches_plain_f32(case):
     a, widths = _mirror_inputs(case)
     args = _bwd_args(a, widths)
     stats = {}
-    got = mirror_bwd(*args, widths, stats=stats)
+    got = classic_mirror(args, widths, stats=stats)
     want = tpa.fused_pe_link_attention_bwd_plain(*args, widths)
     draw = MIRROR_CASES[case][3]
     if draw.startswith("count"):       # TS = 8: one full tile, or one more
@@ -213,8 +223,8 @@ def test_mirror_matches_pallas_vjp_f32():
     go = torch.as_tensor(g_out)
     m, l = torch.as_tensor(np.array(m)), torch.as_tensor(np.array(l))
     delta = (go * (torch.as_tensor(np.array(out)) - t["bias"])).sum(-1)
-    dkeys, dq, dw1cat, dg, db, dw2, dcb, datt = mirror_bwd(
-        *(t[n] for n in BWD_ORDER), m, l, go, delta, ALIGNED, ts=16)
+    dkeys, dq, dw1cat, dg, db, dw2, dcb, datt = classic_mirror(
+        [t[n] for n in BWD_ORDER] + [m, l, go, delta], ALIGNED, ts=16)
     k = dw1cat.shape[0] // 3
     got = dict(keys=dkeys, q=dq, w1=torch.stack([dw1cat[:k], dw1cat[k:2 * k]],
                                                 1),
