@@ -11,7 +11,9 @@ Phases, each printing its own lines:
      all at once;
   3. kernels: each kernel against its plain torch version on the card at
      its main-path shapes, with CUDA-event times, the work's bound and a
-     yardstick: the combined table's pair at B=4096, C=128, O=dh=128, K=3
+     yardstick (the PE+attention backward wrappers' checked call under
+     ``torch.cuda.set_sync_debug_mode("error")``, so a host synchronisation
+     fails it): the combined table's pair at B=4096, C=128, O=dh=128, K=3
      (bf16 and f32), then at the ddi-like widths O=dh=256 and at O=256,
      dh=128 (bf16), these with the collab-like draw's ~10 valid slots a
      link, and at O=dh=256 with the ddi-like preset's ~43 (bf16,
@@ -289,9 +291,16 @@ def phase_kernel_bwd(dev, layout, t):
     its main-path shape and its wider shapes; returns the JSON entry."""
     names = ("dkeys", "dq", "dw1cat", "dg", "db", "dw2", "dcb", "datt")
     entry = None
+    t["module"]._load_bwd()
     for dtype, shape, kw in _runs(t):
         a = bwd_inputs(t["inputs"](dev, dtype, **kw))
-        got = t["bwd"](**a)
+        torch.cuda.synchronize()
+        # the wrapper and its slot compaction must never wait on the card
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = t["bwd"](**a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         want = in_link_chunks(t["bwd_plain"], a, 2)
         text, max_abs = _bwd_check(f"{layout} backward kernel at {shape}",

@@ -7,16 +7,16 @@
 //
 // The kernels are csrc/pe_attention_bwd_tiles.cuh's (their math, bound and
 // design are described there): tiles of the valid slots of one class, in
-// the order ops/pe_attention.py:compact_slots lists them (class k is the
-// column block k, widths n0, n1, n2). The TPU kernel sums each C-tile's
-// weight grads in scratch across a sequential sweep of the links and
-// writes one set per tile, which the wrapper then sums per class (its dw2
-// rounded to bf16 per tile first, pe_attention.py:485). Here the small
-// grads go through per-block shared-memory sums and one f32 atomic per
-// element and block, and the dw2 launch reduces class k over its slots
-// alone, in f32, rounded once by the caller. Dead slots' dkeys rows are
-// zero, as on the TPU (:336-339): the caller zeroes dkeys and the kernels
-// write the valid rows.
+// the order ops/pe_attention_mixed.py:compact_tagged_slots lists them
+// (class k is the column block k, widths n0, n1, n2). The TPU kernel sums
+// each C-tile's weight grads in scratch across a sequential sweep of the
+// links and writes one set per tile, which the wrapper then sums per class
+// (its dw2 rounded to bf16 per tile first, pe_attention.py:485). Here the
+// small grads go through per-block shared-memory sums and one f32 atomic
+// per element and block, and the dw2 launch reduces class k over its
+// slots alone, in f32, rounded once by the caller. Dead slots' dkeys rows
+// are zero, as on the TPU (:336-339): the caller zeroes dkeys and the
+// kernels write the valid rows.
 
 #include "pe_attention_bwd_tiles.cuh"
 

@@ -40,10 +40,9 @@
 //
 // Design. The wrapper lists the valid slots in (class, link, column) order
 // with the classes' offsets on the device (device ops, no host sync):
-// ops/pe_attention.py:compact_slots for the classic table's column blocks,
-// ops/pe_attention_mixed.py:compact_tagged_slots for the combined table's
-// class tags. Nothing here asks where a slot's class comes from: a tile's
-// class is its place in that list.
+// ops/pe_attention_mixed.py:compact_tagged_slots, from the combined table's
+// class tags or the classic table's column blocks. Nothing here asks where
+// a slot's class comes from: a tile's class is its place in that list.
 //   * main kernel: a persistent block takes tiles of TS slots of one class
 //     (64 with 8 warps, two blocks an SM; or, when O or dh passes 128, 32
 //     with 16 warps, one block an SM). Per tile, after every thread has

@@ -11,14 +11,14 @@
 // valid slot's class is ecls[b, c] clamped into [0, K), as the forward
 // kernel reads it, so a link's slots lie in up to K runs of the list, one
 // per class, and dq takes one f32 atomic per column of each run (more
-// where a tile boundary cuts a run). The TPU kernel sums the weight grads in scratch across its
-// sequential sweep of the links, dW2f in f32 over the whole grid, cast
-// once (:485). Here the small grads go through per-block shared-memory
-// sums and one f32 atomic per element and block, and the dw2 launch
-// reduces class k over its slots alone, in f32, rounded once by the
-// caller: the same rounding. Dead slots' dkeys rows and the dq rows of
-// links with no valid slot are zero: the caller zeroes dkeys and dq and
-// the kernels write the valid rows.
+// where a tile boundary cuts a run). The TPU kernel sums the weight grads
+// in scratch across its sequential sweep of the links, dW2f in f32 over
+// the whole grid, cast once (:485). Here the small grads go through
+// per-block shared-memory sums and one f32 atomic per element and block,
+// and the dw2 launch reduces class k over its slots alone, in f32, rounded
+// once by the caller: the same rounding. Dead slots' dkeys rows and the dq
+// rows of links with no valid slot are zero: the caller zeroes dkeys and
+// dq and the kernels write the valid rows.
 
 #include "pe_attention_bwd_tiles.cuh"
 

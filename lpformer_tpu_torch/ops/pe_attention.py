@@ -17,7 +17,8 @@ and stack the weights per tile, so every tile must hold one class and one
 tile size must divide every width (the JAX package runs its XLA path
 otherwise). This op takes ``class_widths`` instead, any widths, keeps the
 [B, C] layouts, and stacks only the weights per class ([K, ...], as the
-mixed op). It never builds or reads a per-slot class tensor.
+mixed op). Its forward never builds or reads a per-slot class tensor; its
+backward's compaction keys each slot by its column's block.
 
 ``fused_pe_link_attention`` is a ``torch.autograd.Function``. Its forward
 launches the hand-written CUDA kernel ``csrc/pe_attention_fwd.cu`` on CUDA
@@ -26,11 +27,13 @@ runs ``fused_pe_link_attention_plain``, the same math in torch ops with
 one contiguous column slice per class, on CPU tensors. Its backward, from
 the saved m, l and out, is ``fused_pe_link_attention_bwd``: the CUDA
 kernels ``csrc/pe_attention_bwd.cu`` on CUDA tensors, which take tiles of
-one class's valid slots as ``compact_slots`` lists them (device ops, no
-host synchronisation), ``fused_pe_link_attention_bwd_plain`` on CPU
-tensors. There is no fallback
-between kernel and plain version. delta = g_out . (out - bias) and dbias =
-sum_b g_out are computed in torch, as the JAX package's ``_fused_bwd``.
+one class's valid slots as ``compact_tagged_slots`` lists them from each
+column's class block (device ops, no host synchronisation; the combined
+table's wrapper lists its slots the same way),
+``fused_pe_link_attention_bwd_plain`` on CPU tensors. There is no
+fallback between kernel and plain version. delta = g_out . (out - bias)
+and dbias = sum_b g_out are computed in torch, as the JAX package's
+``_fused_bwd``.
 
 Rounding points are the TPU kernel's: the hidden activation h is rounded
 to the keys' type before the W2f product (pe_attention.py:76-77), the key
@@ -43,6 +46,7 @@ rounded once. In f32 the two differ only in summation order.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Sequence, Tuple
 
 import torch
@@ -50,7 +54,8 @@ import torch
 from lpformer_tpu_torch.ops._cuda import bind, build_cuda, check_tensors
 from lpformer_tpu_torch.ops.pe_attention_mixed import (
     BWD_HEADERS, FWD_HEADERS, attend, attend_backward, backward_cotangent,
-    ln_affine, ln_backward, split_layer1_grads, tile_slots,
+    compact_tagged_slots, ln_affine, ln_backward, split_layer1_grads,
+    tile_slots,
 )
 
 _LIB = None
@@ -117,32 +122,15 @@ def _pe_blocks(ps, pt, w1, b1, g, b, w2f, class_widths):
     return out
 
 
-def compact_slots(valid, class_widths):
-    """The valid slots in (class k, link b, column c) order, as the backward
-    kernels' tiles take them: (slots [B*C] int32, the slot ids b*C + c
-    of the valid slots first, then the dead ones; offsets [K+1] int32,
-    class k's slots at [offsets[k], offsets[k+1])). Device ops only, with
-    no host synchronisation: one cumsum over the class blocks' validity
-    flattened block by block, and a scatter of the slot ids."""
-    bsz, c = valid.shape
-    ids = torch.arange(bsz * c, dtype=torch.int32,
-                       device=valid.device).view(bsz, c)
-    blocks = list(_blocks(class_widths))
-    live = torch.cat([valid[:, cols].reshape(-1) for _, cols in blocks])
-    sid = torch.cat([ids[:, cols].reshape(-1) for _, cols in blocks])
-    pos = torch.cumsum(live, 0, dtype=torch.int32)    # inclusive ranks
-    # a stable partition: the dead slots follow the valid ones, each to a
-    # place of its own (no two writes to one entry)
-    dead_rank = torch.arange(bsz * c, dtype=torch.int32,
-                             device=valid.device) - pos
-    dest = torch.where(live, pos - 1, pos[-1:] + dead_rank)
-    slots = torch.empty_like(sid).scatter_(0, dest.long(), sid)
-    # class k ends after B * (its width and the widths before it) entries;
-    # integer indices are views, so no index tensor crosses from the host
-    ranks = torch.cat([pos.new_zeros(1), pos])
-    offsets = torch.stack([ranks[bsz * cols.start] for _, cols in blocks]
-                          + [ranks[bsz * c]])
-    return slots, offsets
+def column_classes(class_widths, c, device):
+    """[C] int32: each column's class, the index of its block, for
+    ``compact_tagged_slots``. Built from Python ints by device ops, so no
+    tensor crosses from the host."""
+    col = torch.arange(c, dtype=torch.int32, device=device)
+    cls = torch.zeros_like(col)
+    for end in itertools.accumulate(class_widths[:-1]):
+        cls += col >= end
+    return cls
 
 
 def _keys_xj(keys, cbias, blocks, class_widths):
@@ -299,7 +287,8 @@ def fused_pe_link_attention_bwd(
     dw2 = torch.zeros((k, dh, o), **f32)
     dcb = torch.zeros((k, o), **f32)
     datt = torch.zeros(att.shape, **f32)
-    slots, offsets = compact_slots(valid, class_widths)
+    slots, offsets = compact_tagged_slots(
+        valid, column_classes(class_widths, c, dev), k)
     lib = _load_bwd()
     with torch.cuda.device(dev):
         err = lib.pe_attention_bwd(

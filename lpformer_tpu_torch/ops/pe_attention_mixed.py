@@ -91,17 +91,20 @@ def tile_slots(o, dh):
 
 
 def compact_tagged_slots(valid, ecls, k):
-    """The combined table's valid slots in (class, link b, column c)
-    order, as the backward kernels' tiles take them: (slots [B*C] int32,
-    the slot ids b*C + c of the valid slots first, then the dead ones, each
-    in a place of its own; offsets [K+1] int32, class k's slots at
-    [offsets[k], offsets[k+1])). A valid slot's class is ecls clamped into
-    [0, K), as the forward kernel reads it; a dead slot's ecls is not read.
-    Device ops only, with no host synchronisation: a stable sort of the
-    slots by a one-byte key, the class or K for a dead slot (one radix
-    pass), and a binary search of the sorted keys for the offsets."""
-    key = torch.where(valid.reshape(-1), ecls.reshape(-1).clamp(0, k - 1),
-                      k).to(torch.uint8)
+    """Either table's valid slots in (class, link b, column c) order, as
+    the backward kernels' tiles take them: (slots [B*C] int32, the slot
+    ids b*C + c of the valid slots first, then the dead ones, each in a
+    place of its own; offsets [K+1] int32, class k's slots at
+    [offsets[k], offsets[k+1])). ``ecls`` holds the classes, per slot
+    [B, C] on the combined table, per column [C] on the classic one
+    (``pe_attention.column_classes``). A valid slot's class is its ecls
+    clamped into [0, K), as the forward kernel reads it; a dead slot's is
+    not read. Device ops only, with no host synchronisation: a stable sort
+    of the slots by a one-byte key, the class or K for a dead slot (one
+    radix pass), and a binary search of the sorted keys for the
+    offsets."""
+    key = torch.where(valid, ecls.clamp(0, k - 1), k).to(
+        torch.uint8).reshape(-1)
     keys, order = torch.sort(key, stable=True)
     bounds = torch.arange(k + 1, dtype=torch.uint8, device=key.device)
     offsets = torch.searchsorted(keys, bounds, out_int32=True)

@@ -1,11 +1,14 @@
 """The combined table's backward on the tile kernels
 (csrc/pe_attention_bwd_tiles.cuh, through csrc/pe_attention_mixed_bwd.cu):
-its slot compaction, ``compact_tagged_slots``, against a numpy reference,
-and the tile mirror of ``test_torch_pe_attention_tiles.py`` fed by that
-compaction, held to the plain backward
-(``fused_pe_link_attention_mixed_bwd_plain``) and to the JAX package's
-mixed Pallas VJP (interpret mode). On the card (``cuda`` marker) the
-kernels are held to the plain backward.
+the slot compaction both tables' wrappers run, ``compact_tagged_slots``,
+against a numpy reference (the combined table's tags and the classic
+table's column blocks), and the tile mirror of
+``test_torch_pe_attention_tiles.py`` fed by the combined table's slots,
+held to the plain backward (``fused_pe_link_attention_mixed_bwd_plain``)
+and to the JAX package's mixed Pallas VJP (interpret mode). On the card
+(``cuda`` marker) the kernels are held to the plain backward, and both
+tables' wrappers are run at the main shape under
+``set_sync_debug_mode("error")``.
 
 A link's valid slots of the combined table mix their classes, so the
 compaction splits a link into up to K runs, one per class; small tiles in
@@ -26,6 +29,7 @@ from test_torch_pe_attention_mixed_bwd import (
 )
 from test_torch_pe_attention_tiles import NAMES, mirror_bwd
 
+from lpformer_tpu_torch.ops import pe_attention as tpa
 from lpformer_tpu_torch.ops import pe_attention_mixed as tpam
 
 K = 3
@@ -45,13 +49,31 @@ def _reference(valid, ecls, k):
     return want, offsets
 
 
-COMPACT_CASES = ("random", "empty class", "all dead", "one class link",
-                 "dead slots tagged", "out of range")
+# (table, case): the combined table's classes are per-slot tags, the
+# classic table's its column blocks (ops/pe_attention.py:column_classes)
+COMPACT_CASES = ([("combined", c) for c in (
+    "random", "empty class", "all dead", "one class link",
+    "dead slots tagged", "out of range")]
+    + [("classic", c) for c in (
+        "random", "empty class", "full block", "all dead")])
 
 
-@pytest.mark.parametrize("case", COMPACT_CASES)
-def test_compact_tagged_slots_orders_by_class_link_column(case):
+def _compact_case(table, case):
+    """(valid [B, C] numpy, the classes the compaction is given, the
+    classes per slot in numpy for the reference)."""
     rng = np.random.default_rng(len(case))
+    if table == "classic":
+        widths = (0, 40, 20) if case == "empty class" else (12, 40, 20)
+        valid = rng.random((8, sum(widths))) < 0.4
+        if case == "full block":        # a run longer than any tile
+            valid[3, 12:52] = True
+        if case == "all dead":
+            valid[:] = False
+        want_cls = np.repeat(np.arange(K), widths)
+        cls = tpa.column_classes(widths, valid.shape[1], "cpu")
+        assert cls.dtype == torch.int32
+        assert cls.tolist() == want_cls.tolist()
+        return valid, cls, np.broadcast_to(want_cls, valid.shape)
     b, c = 8, 40
     valid = rng.random((b, c)) < 0.4
     ecls = rng.integers(0, K, (b, c))
@@ -68,18 +90,26 @@ def test_compact_tagged_slots_orders_by_class_link_column(case):
     if case == "out of range":       # clamped into [0, K) as the forward
         ecls = np.where(rng.random((b, c)) < 0.5, ecls,
                         rng.choice([-3, -1, K, K + 4], (b, c)))
-    slots, offsets = tpam.compact_tagged_slots(
-        torch.as_tensor(valid), torch.as_tensor(ecls, dtype=torch.int32), K)
+    return valid, torch.as_tensor(ecls, dtype=torch.int32), ecls
+
+
+@pytest.mark.parametrize("table,case", COMPACT_CASES)
+def test_compact_tagged_slots_orders_by_class_link_column(table, case):
+    valid, cls, ref_cls = _compact_case(table, case)
+    b, c = valid.shape
+    slots, offsets = tpam.compact_tagged_slots(torch.as_tensor(valid), cls,
+                                               K)
     assert slots.dtype == offsets.dtype == torch.int32
     assert slots.shape == (b * c,) and offsets.shape == (K + 1,)
-    want, want_off = _reference(valid, ecls, K)
+    want, want_off = _reference(valid, ref_cls, K)
     assert offsets.tolist() == want_off
     assert slots[:len(want)].tolist() == want
     # every slot in a place of its own: the dead ones follow, in order
     dead = np.flatnonzero(~valid.reshape(-1)).tolist()
     assert slots[len(want):].tolist() == dead
     if case == "empty class":
-        assert want_off[1] == want_off[2]
+        empty = 0 if table == "classic" else 1
+        assert want_off[empty] == want_off[empty + 1]
 
 
 def _draw(valid, ecls, seed, o=16, dh=16, bf16=False):
@@ -242,6 +272,43 @@ def test_kernels_match_plain_on_card(o, dh, bf16, case):
         assert_close_card(x, y, tol, n)
     assert bool((got[0][~args[3]] == 0).all())
     assert bool((got[1][0] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["combined", "classic"])
+def test_backward_never_syncs_at_the_main_shape(table):
+    """Both tables' backward wrappers under ``set_sync_debug_mode("error")``
+    at the main path's B and C (B*C of 524,288 and 1,310,720, where
+    ``torch.sort`` runs CUB's radix sort, not the small in-place sort it
+    takes up to 4,096 slots), at O = dh = 16 to stay small; the outputs
+    held to the plain backward at the bf16 tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from lpformer_tpu_torch.utils import measure
+
+    if table == "combined":
+        mod, bwd, plain = (tpam, tpam.fused_pe_link_attention_mixed_bwd,
+                           tpam.fused_pe_link_attention_mixed_bwd_plain)
+        a = measure.kernel_inputs("cuda", torch.bfloat16, o=16, dh=16)
+    else:
+        mod, bwd, plain = (tpa, tpa.fused_pe_link_attention_bwd,
+                           tpa.fused_pe_link_attention_bwd_plain)
+        a = measure.classic_kernel_inputs("cuda", torch.bfloat16, o=16,
+                                          dh=16)
+    a = measure.bwd_inputs(a)
+    assert a["valid"].numel() > 4096
+    mod._load_bwd()      # the build synchronises; the backward must not
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = bwd(**a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    want = plain(**a)
+    for n, x, y in zip(NAMES, got, want):
+        assert x.dtype == y.dtype, n
+        assert_close_card(x, y, 2e-2, n)
 
 
 @pytest.mark.cuda

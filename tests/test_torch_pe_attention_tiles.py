@@ -1,9 +1,10 @@
 """The backward's tile algorithm (csrc/pe_attention_bwd_tiles.cuh) on the
-CPU, over the classic table: the slot compaction its wrapper runs, and a
-test-only mirror of its kernels' arithmetic in torch, held to the plain
-backward and to the JAX package's Pallas VJP (interpret mode). The
-combined table's compaction feeds the same mirror in
-``test_torch_pe_attention_mixed_tiles.py``.
+CPU, over the classic table: a test-only mirror of its kernels'
+arithmetic in torch, fed by the slot compaction the wrapper runs
+(``compact_tagged_slots`` over the column blocks' classes), held to the
+plain backward and to the JAX package's Pallas VJP (interpret mode). The
+compaction's own tests, for both tables, and the combined table's mirror
+tests are in ``test_torch_pe_attention_mixed_tiles.py``.
 
 The mirror walks what the kernels walk: the valid slots compacted in
 (class, link, column) order, as a compaction lists them (slots and
@@ -29,7 +30,9 @@ from test_torch_pe_attention import (
 from test_torch_pe_attention_mixed_bwd import assert_close_scaled
 
 from lpformer_tpu_torch.ops import pe_attention as tpa
-from lpformer_tpu_torch.ops.pe_attention_mixed import ln_affine, ln_backward
+from lpformer_tpu_torch.ops.pe_attention_mixed import (
+    compact_tagged_slots, ln_affine, ln_backward,
+)
 
 NAMES = ("dkeys", "dq", "dw1cat", "dg", "db", "dw2", "dcb", "datt")
 BWD_ORDER = ("keys", "ps", "pt", "valid", "q", "w1", "b1", "g", "b", "w2f",
@@ -132,10 +135,17 @@ def mirror_bwd(keys, ps, pt, q, w1, b1, g, b, w2f, cbias, att, m, l, g_out,
     return dkeys.reshape(keys.shape), dq, dw1cat, dg, db, dw2, dcb, datt
 
 
+def classic_slots(valid, widths):
+    """The classic wrapper's compaction: (slots, offsets) of
+    ``compact_tagged_slots`` over the column blocks' classes."""
+    cls = tpa.column_classes(widths, valid.shape[1], valid.device)
+    return compact_tagged_slots(valid, cls, len(widths))
+
+
 def classic_mirror(args, widths, **kw):
-    """``mirror_bwd`` over ``compact_slots``' list, from the classic plain
+    """``mirror_bwd`` over ``classic_slots``' list, from the classic plain
     backward's arguments ``args`` (BWD_ORDER, then m, l, g_out, delta)."""
-    slots, offsets = tpa.compact_slots(args[3], widths)
+    slots, offsets = classic_slots(args[3], widths)
     return mirror_bwd(*args[:3], *args[4:], slots, offsets, **kw)
 
 
@@ -147,29 +157,6 @@ def _bwd_args(a, widths):
     g_out = torch.as_tensor(_cot(7, o=out.shape[1]))
     delta = (g_out * (out - t["bias"])).sum(-1)
     return [t[n] for n in BWD_ORDER] + [m, l, g_out, delta]
-
-
-@pytest.mark.parametrize("widths,case", [
-    (MISALIGNED, "random"), ((0, 40, 20), "empty class"),
-    ((12, 40, 20), "full block"), ((12, 40, 20), "all dead")])
-def test_compact_slots_orders_by_class_link_column(widths, case):
-    rng = np.random.default_rng(len(case))
-    valid = torch.as_tensor(rng.random((8, sum(widths))) < 0.4)
-    if case == "full block":
-        valid[3, 12:52] = True
-    if case == "all dead":
-        valid[:] = False
-    slots, offsets = tpa.compact_slots(valid, widths)
-    assert slots.dtype == offsets.dtype == torch.int32
-    assert slots.shape == (valid.numel(),)
-    want, counts, lo = [], [0], 0
-    for w in widths:
-        nz = valid[:, lo:lo + w].nonzero()          # (b, c) row-major
-        want += (nz[:, 0] * valid.shape[1] + lo + nz[:, 1]).tolist()
-        counts.append(counts[-1] + len(nz))
-        lo += w
-    assert offsets.tolist() == counts
-    assert slots[:len(want)].tolist() == want
 
 
 # (class widths, O, dh, how the validity is drawn)
@@ -202,7 +189,7 @@ def test_mirror_matches_plain_f32(case):
     want = tpa.fused_pe_link_attention_bwd_plain(*args, widths)
     draw = MIRROR_CASES[case][3]
     if draw.startswith("count"):       # TS = 8: one full tile, or one more
-        _, offsets = tpa.compact_slots(args[3], widths)
+        _, offsets = classic_slots(args[3], widths)
         assert int(offsets[1]) == int(draw.split()[1])
     else:
         assert stats["cut_runs"] > 0
