@@ -41,8 +41,7 @@ int pe_attention_bwd(
     int n0, int n1, int n2, int ts, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int widths[3] = {n0, n1, n2};
-  BlockedClasses cls;
-  if (!blocked_classes(K, C, widths, &cls)) return (int)cudaErrorInvalidValue;
+  if (!class_widths_ok(K, C, widths)) return (int)cudaErrorInvalidValue;
   auto launch = bf16 ? &launch_tiles_bwd<__nv_bfloat16>
                      : &launch_tiles_bwd<float>;
   return launch(keys, ps, pt, slots, offsets, q, g_out, m, l, delta, w1, b1,

@@ -1,23 +1,13 @@
-// Device helpers of the fused PE + per-link attention kernels, and the two
-// ways the forward kernel finds a context slot's class.
-//
-// The forward kernel of csrc/pe_attention_fwd.cuh is a template over a
-// class source:
-//   * TaggedClasses: the combined table, whose slots carry their class in
-//     a [B, C] int32 tensor (ecls); used by pe_attention_mixed_fwd.cu;
-//   * BlockedClasses: the classic table, whose columns are K contiguous
-//     class blocks [cn | 1-hop | >1-hop]; the class of a slot is the block
-//     that holds its column, found from the K block ends passed by value,
-//     so no class tensor exists; used by pe_attention_fwd.cu (and
-//     pe_attention_bwd.cu checks its widths with blocked_classes).
-// The backward kernels (csrc/pe_attention_bwd_tiles.cuh) need neither: a
-// tile's class is its place in the wrapper's list of compacted slots.
-// Any widths: lane `lane` of a warp owns the output columns 4*lane + 128*j
-// + i (i < 4, every j with the column below O) and the hidden units d =
-// lane + 32*j (d < dh). A row of O values is read 4 columns a lane, as one
-// 8- or 16-byte access when O is a multiple of 4 (every row then starts
-// 16-byte aligned from a 16-byte aligned base) and element by element
-// otherwise or at the ragged end of the row.
+// Device and launch helpers shared by the CUDA kernels of the port: the
+// fused PE + per-link attention tiles (csrc/pe_attention_tiles.cuh and the
+// forward and backward headers on it), the per-link attention
+// (csrc/link_attention_*.cu) and the scatter-add.
+// The per-link attention's warps own columns of a row: lane `lane` owns the
+// output columns 4*lane + 128*j + i (i < 4, every j with the column below
+// O); a row of O values is read 4 columns a lane, as one 8- or 16-byte
+// access when O is a multiple of 4 (every row then starts 16-byte aligned
+// from a 16-byte aligned base) and element by element otherwise or at the
+// ragged end of the row.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,25 +21,8 @@ constexpr float kNeg = -1e30f;
 constexpr float kLnEps = 1e-5f;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct TaggedClasses {
-  const int32_t* ecls;                  // [B, C], clamped into [0, K)
-  int K;
-  __device__ __forceinline__ int of(size_t bc, int) const {
-    return min(max(ecls[bc], 0), K - 1);
-  }
-};
-
-struct BlockedClasses {
-  // class k owns columns [stop[k-1], stop[k]) (stop[-1] = 0); the stops
-  // of absent classes are C, so `of` never exceeds K - 1
-  int stop[3];
-  __device__ __forceinline__ int of(size_t, int c) const {
-    return (c >= stop[0]) + (c >= stop[1]);
-  }
-};
-
-// h and dxj rounded to the weight type where the TPU kernels round them
-// (`.astype(kdt)`)
+// dxj rounded to the weight type where the TPU kernel rounds it
+// (`.astype(kdt)`; the per-link attention's backward)
 __device__ __forceinline__ float round_to(float v, float) { return v; }
 __device__ __forceinline__ float round_to(float v, __nv_bfloat16) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -118,6 +91,12 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, s));
+  return v;
+}
+
 // four consecutive elements of shared memory as floats (8- or 16-byte
 // aligned accesses)
 __device__ __forceinline__ void load4_shared(const float* p, float* o) {
@@ -177,43 +156,6 @@ __device__ __forceinline__ void row4(const SplitRows<T>& w, int d, int O,
   for (int i = 0; i < 4; ++i) v[i] = i < n ? to_f32(r[i]) : 0.f;
 }
 
-// x[0..3] += sum_d hs[d] * w[d, o .. o+3] over the dh rows of one W2f
-// matrix (row stride O): the staged rows from shared memory, then the rest
-// through the read-only path; the warp's 32 lanes read 128 consecutive
-// columns of a row at once.
-template <typename T>
-__device__ __forceinline__ void w2_product(const SplitRows<T>& w,
-                                           const float* hs, int dh, int O,
-                                           int o, int n, bool vec, float* x) {
-  const int split = min(w.staged, dh);
-  if (vec && n == 4) {
-#pragma unroll 4
-    for (int d = 0; d < split; ++d) {
-      float v[4];
-      load4_shared(w.shared + (size_t)d * O + o, v);
-      const float h = hs[d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] += h * v[i];
-    }
-#pragma unroll 4
-    for (int d = split; d < dh; ++d) {
-      float v[4];
-      load4(w.global + (size_t)d * O + o, v);
-      const float h = hs[d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] += h * v[i];
-    }
-  } else {
-    for (int d = 0; d < dh; ++d) {
-      float v[4];
-      row4(w, d, O, o, n, vec, v);
-      const float h = hs[d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) x[i] += h * v[i];
-    }
-  }
-}
-
 // One step of a transpose-reduce: the lanes that differ in bit S trade
 // halves of p[0 .. 2S) and each keeps the sum of its half.
 template <int S>
@@ -263,71 +205,6 @@ __device__ __forceinline__ void sts4(float* p, int n, bool vec,
 // n rounded up to a multiple of 4 floats, so the arrays of a warp's slice
 // of shared memory start 16-byte aligned
 __host__ __device__ constexpr int pad4(int n) { return (n + 3) & ~3; }
-
-// hidden units a lane keeps in registers (all of them at dh <= 128)
-constexpr int kRegUnits = 4;
-
-// Floats of a warp's shared memory for one direction's hidden units past
-// those its lanes keep in registers (dh > 32 * kRegUnits).
-__host__ __device__ constexpr int smem_units(int dh) {
-  return dh > 32 * kRegUnits ? pad4(dh - 32 * kRegUnits) : 0;
-}
-
-// Both PE directions' layer 1 and LayerNorm for one slot of class k: the
-// normalised xhat_a / xhat_b over the dh hidden units and the rsqrt
-// factors inv_a / inv_b (two-pass statistics, as the reference: the mean,
-// then the mean of the centred squares). Lane `lane` holds the units d =
-// lane + 32*j, the first kRegUnits of them in registers (every unit at
-// dh <= 128) and the rest in the warp's shared memory sa, sb.
-struct LnPair {
-  float ra[kRegUnits], rb[kRegUnits];
-  float* sa;                            // [smem_units(dh)]
-  float* sb;
-  float inv_a, inv_b;
-
-  // f(d, xa, xb) for each of the lane's units d
-  template <typename F>
-  __device__ __forceinline__ void each(int dh, int lane, F&& f) {
-#pragma unroll
-    for (int j = 0; j < kRegUnits; ++j) {
-      const int d = lane + 32 * j;
-      if (d < dh) f(d, ra[j], rb[j]);
-    }
-    for (int d = lane + 32 * kRegUnits; d < dh; d += 32)
-      f(d, sa[d - 32 * kRegUnits], sb[d - 32 * kRegUnits]);
-  }
-
-  // from the inputs (a0, a1) of direction a and (a1, a0) of direction b
-  __device__ __forceinline__ void compute(const float* __restrict__ w1,
-                                          const float* __restrict__ b1,
-                                          int k, int dh, int lane, float a0,
-                                          float a1) {
-    float sum_a = 0.f, sum_b = 0.f;
-    each(dh, lane, [&](int d, float& xa, float& xb) {
-      const float wa = w1[(k * 2) * dh + d];
-      const float wb = w1[(k * 2 + 1) * dh + d];
-      const float bb = b1[k * dh + d];
-      xa = a0 * wa + a1 * wb + bb;
-      xb = a1 * wa + a0 * wb + bb;
-      sum_a += xa;
-      sum_b += xb;
-    });
-    const float mua = warp_sum(sum_a) / dh, mub = warp_sum(sum_b) / dh;
-    float var_a = 0.f, var_b = 0.f;
-    each(dh, lane, [&](int, float& xa, float& xb) {
-      xa -= mua;
-      xb -= mub;
-      var_a += xa * xa;
-      var_b += xb * xb;
-    });
-    inv_a = rsqrtf(warp_sum(var_a) / dh + kLnEps);
-    inv_b = rsqrtf(warp_sum(var_b) / dh + kLnEps);
-    each(dh, lane, [&](int, float& xa, float& xb) {
-      xa *= inv_a;
-      xb *= inv_b;
-    });
-  }
-};
 
 // The links' work counter of the library's kernels: 0 when a launch begins
 // (at load, and reset by the previous launch's last draw). Launches of one
@@ -428,15 +305,14 @@ cudaError_t persistent_grid(Kern kern, int threads, size_t smem,
   return cudaSuccess;
 }
 
-// The classic table's blocks from K widths n[0..K-1] summing to C; false
-// when the widths do not describe C columns.
-inline bool blocked_classes(int K, int C, const int* n, BlockedClasses* out) {
+// Whether K <= 3 class widths n[0..2] (0 past K) describe the classic
+// table's C columns.
+inline bool class_widths_ok(int K, int C, const int* n) {
   if (K < 1 || K > 3) return false;
   int end = 0;
   for (int k = 0; k < 3; ++k) {
     if (n[k] < 0 || (k >= K && n[k] != 0)) return false;
     end += n[k];
-    out->stop[k] = k < K - 1 ? end : C;
   }
   return end == C;
 }

@@ -17,23 +17,22 @@ and stack the weights per tile, so every tile must hold one class and one
 tile size must divide every width (the JAX package runs its XLA path
 otherwise). This op takes ``class_widths`` instead, any widths, keeps the
 [B, C] layouts, and stacks only the weights per class ([K, ...], as the
-mixed op). Its forward never builds or reads a per-slot class tensor; its
-backward's compaction keys each slot by its column's block.
+mixed op). No per-slot class tensor is built: the kernels' compaction
+keys each slot by its column's block.
 
-``fused_pe_link_attention`` is a ``torch.autograd.Function``. Its forward
-launches the hand-written CUDA kernel ``csrc/pe_attention_fwd.cu`` on CUDA
-tensors (built with nvcc for sm_90a at first use, loaded with ctypes) and
-runs ``fused_pe_link_attention_plain``, the same math in torch ops with
-one contiguous column slice per class, on CPU tensors. Its backward, from
-the saved m, l and out, is ``fused_pe_link_attention_bwd``: the CUDA
-kernels ``csrc/pe_attention_bwd.cu`` on CUDA tensors, which take tiles of
-one class's valid slots as ``compact_tagged_slots`` lists them from each
-column's class block (device ops, no host synchronisation; the combined
-table's wrapper lists its slots the same way),
-``fused_pe_link_attention_bwd_plain`` on CPU tensors. There is no
-fallback between kernel and plain version. delta = g_out . (out - bias)
-and dbias = sum_b g_out are computed in torch, as the JAX package's
-``_fused_bwd``.
+``fused_pe_link_attention`` is a ``torch.autograd.Function``. On CUDA
+tensors both directions launch hand-written CUDA kernels (built with nvcc
+for sm_90a at first use, loaded with ctypes), the forward
+``csrc/pe_attention_fwd.cu`` and the backward
+``fused_pe_link_attention_bwd`` from the saved m, l and out,
+``csrc/pe_attention_bwd.cu``: the combined table's tile kernels, which take
+tiles of one class's valid slots as ``compact_tagged_slots`` lists them,
+here from each column's class block (device ops, no host synchronisation).
+On CPU tensors they run ``fused_pe_link_attention_plain`` and
+``fused_pe_link_attention_bwd_plain``, the same math in torch ops with one
+contiguous column slice per class. There is no fallback between kernel and
+plain version. delta = g_out . (out - bias) and dbias = sum_b g_out are
+computed in torch, as the JAX package's ``_fused_bwd``.
 
 Rounding points are the TPU kernel's: the hidden activation h is rounded
 to the keys' type before the W2f product (pe_attention.py:76-77), the key
@@ -54,8 +53,8 @@ import torch
 from lpformer_tpu_torch.ops._cuda import bind, build_cuda, check_tensors
 from lpformer_tpu_torch.ops.pe_attention_mixed import (
     BWD_HEADERS, FWD_HEADERS, attend, attend_backward, backward_cotangent,
-    compact_tagged_slots, ln_affine, ln_backward, split_layer1_grads,
-    tile_slots,
+    compact_tagged_slots, launch_fwd, ln_affine, ln_backward,
+    split_layer1_grads, tile_slots,
 )
 
 _LIB = None
@@ -78,7 +77,7 @@ def build_bwd() -> Tuple[str, str]:
 def _load():
     global _LIB
     if _LIB is None:
-        _LIB = bind(build()[0], "pe_attention_fwd", 16, 9,
+        _LIB = bind(build()[0], "pe_attention_fwd", 19, 10,
                     "pe_attention_error_string")
     return _LIB
 
@@ -233,32 +232,20 @@ def _widths3(class_widths):
 
 def _fwd(keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, bias,
          class_widths) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(out, m, l): the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors. Counts its launches in
-    ``fused_pe_link_attention.launches``."""
+    """(out, m, l): the CUDA kernels on CUDA tensors, the plain version on
+    CPU tensors. Counts its calls in ``fused_pe_link_attention.launches``."""
     args = (keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, bias)
     if keys.device.type == "cpu":
         return fused_pe_link_attention_plain(*args, class_widths)
     _check(*args)
-    bsz, c, o = keys.shape
-    k, _, dh = w1.shape
-    out = torch.empty((bsz, o), dtype=torch.float32, device=keys.device)
-    m = torch.empty((bsz,), dtype=torch.float32, device=keys.device)
-    l = torch.empty((bsz,), dtype=torch.float32, device=keys.device)
-    lib = _load()
-    with torch.cuda.device(keys.device):
-        err = lib.pe_attention_fwd(
-            *[t.data_ptr() for t in args], out.data_ptr(), m.data_ptr(),
-            l.data_ptr(), bsz, c, o, dh, k,
-            *_widths3(class_widths),
-            int(keys.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError("pe_attention_fwd launch failed: "
-                           + lib.pe_attention_error_string(err).decode())
+    c, k = keys.shape[1], w1.shape[0]
+    slots, offsets = compact_tagged_slots(
+        valid, column_classes(class_widths, c, keys.device), k)
+    out = launch_fwd(_load(), "pe_attention_fwd", "pe_attention_error_string",
+                     keys, ps, pt, valid, slots, offsets, args[4:],
+                     _widths3(class_widths))
     fused_pe_link_attention.launches += 1
-    return out, m, l
+    return out
 
 
 def fused_pe_link_attention_bwd(

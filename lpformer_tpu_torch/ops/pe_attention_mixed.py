@@ -9,17 +9,17 @@ For each link b and each valid slot c, with k = ecls[b, c]:
   s      = sum_o att[o] * leaky_relu_0.2(xj[o] * q[b,o])
   out[b] = sum_c softmax_c(s) xj + bias;  m[b], l[b] the softmax stats
 
-``fused_pe_link_attention_mixed`` is a ``torch.autograd.Function``. Its
-forward launches the hand-written CUDA kernel
-``csrc/pe_attention_mixed_fwd.cu`` on CUDA tensors (built with nvcc for
-sm_90a at first use, loaded with ctypes) and runs
-``fused_pe_link_attention_mixed_plain``, the same math in torch ops over
-[B, C], on CPU tensors. Its backward, from the saved m, l and out, is
-``fused_pe_link_attention_mixed_bwd``: on CUDA tensors the kernels
-``csrc/pe_attention_mixed_bwd.cu``, which take tiles of one class's valid
-slots as ``compact_tagged_slots`` lists them (device ops, no host
-synchronisation); ``fused_pe_link_attention_mixed_bwd_plain`` on CPU
-tensors. There is no fallback between kernel and plain version. The
+``fused_pe_link_attention_mixed`` is a ``torch.autograd.Function``. On
+CUDA tensors both directions launch hand-written CUDA kernels (built with
+nvcc for sm_90a at first use, loaded with ctypes) that take tiles of one
+class's valid slots as ``compact_tagged_slots`` lists them (device ops, no
+host synchronisation) and share one prologue for each slot's xj and
+logit: the forward ``csrc/pe_attention_mixed_fwd.cu``, and the backward
+``fused_pe_link_attention_mixed_bwd`` from the saved m, l and out,
+``csrc/pe_attention_mixed_bwd.cu``. On CPU tensors they run
+``fused_pe_link_attention_mixed_plain`` and
+``fused_pe_link_attention_mixed_bwd_plain``, the same math in torch ops
+over [B, C]. There is no fallback between kernel and plain version. The
 caller side of the backward stays in torch as the JAX package's
 ``_fused_bwd`` has it: delta = g_out . (out - bias), dbias = sum_b g_out,
 and the packed layer-1 grad split back into w1[:, 0], w1[:, 1] and b1.
@@ -44,12 +44,14 @@ from lpformer_tpu_torch.ops.segment import masked_softmax
 
 _NEG = -1e30
 _LN_EPS = 1e-5
-# what both tables' forward kernels include: the template and the shared
-# device helpers
-FWD_HEADERS = ("pe_attention_common.cuh", "pe_attention_fwd.cuh")
-# ... and both tables' backward kernels: the tile kernels over compacted
-# valid slots and the shared device helpers
-BWD_HEADERS = ("pe_attention_common.cuh", "pe_attention_bwd_tiles.cuh")
+# what both tables' forward kernels include: the forward tile kernels over
+# compacted valid slots, the tile prologue they share with the backward
+# and the shared device helpers
+FWD_HEADERS = ("pe_attention_common.cuh", "pe_attention_tiles.cuh",
+               "pe_attention_fwd_tiles.cuh")
+# ... and both tables' backward kernels
+BWD_HEADERS = ("pe_attention_common.cuh", "pe_attention_tiles.cuh",
+               "pe_attention_bwd_tiles.cuh")
 _LIB = None
 _LIB_BWD = None
 
@@ -70,7 +72,7 @@ def build_bwd() -> Tuple[str, str]:
 def _load():
     global _LIB
     if _LIB is None:
-        _LIB = bind(build()[0], "pe_attention_mixed_fwd", 17, 6,
+        _LIB = bind(build()[0], "pe_attention_mixed_fwd", 19, 7,
                     "pe_attention_mixed_error_string")
     return _LIB
 
@@ -84,15 +86,15 @@ def _load_bwd():
 
 
 def tile_slots(o, dh):
-    """Valid slots in one tile of the backward kernels: 64, or 32 when O or
-    dh passes 128 (a block's shared memory holds the tile's [TS, 2 dh] and
-    [TS, max(O, dh)] arrays beside W2f_k)."""
+    """Valid slots in one tile of the forward and backward kernels: 64, or
+    32 when O or dh passes 128 (a block's shared memory holds the tile's
+    [TS, 2 dh] and [TS, max(O, dh)] arrays beside W2f_k)."""
     return 64 if max(o, dh) <= 128 else 32
 
 
 def compact_tagged_slots(valid, ecls, k):
     """Either table's valid slots in (class, link b, column c) order, as
-    the backward kernels' tiles take them: (slots [B*C] int32, the slot
+    both directions' tile kernels take them: (slots [B*C] int32, the slot
     ids b*C + c of the valid slots first, then the dead ones, each in a
     place of its own; offsets [K+1] int32, class k's slots at
     [offsets[k], offsets[k+1])). ``ecls`` holds the classes, per slot
@@ -226,31 +228,44 @@ def _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
 
 def _fwd(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, bias
          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(out, m, l): the CUDA kernel on CUDA tensors, the plain version on
-    CPU tensors. Counts its launches in
+    """(out, m, l): the CUDA kernels on CUDA tensors, the plain version on
+    CPU tensors. Counts its calls in
     ``fused_pe_link_attention_mixed.launches``."""
     args = (keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, bias)
     if keys.device.type == "cpu":
         return fused_pe_link_attention_mixed_plain(*args)
     _check(*args)
-    bsz, c, o = keys.shape
-    k, _, dh = w1.shape
-    out = torch.empty((bsz, o), dtype=torch.float32, device=keys.device)
-    m = torch.empty((bsz,), dtype=torch.float32, device=keys.device)
-    l = torch.empty((bsz,), dtype=torch.float32, device=keys.device)
-    lib = _load()
-    with torch.cuda.device(keys.device):
-        err = lib.pe_attention_mixed_fwd(
-            *[t.data_ptr() for t in args], out.data_ptr(), m.data_ptr(),
-            l.data_ptr(), bsz, c, o, dh, k,
-            int(keys.dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(
-            "pe_attention_mixed_fwd launch failed: "
-            + lib.pe_attention_mixed_error_string(err).decode())
+    slots, offsets = compact_tagged_slots(valid, ecls, w1.shape[0])
+    out = launch_fwd(_load(), "pe_attention_mixed_fwd",
+                     "pe_attention_mixed_error_string", keys, ps, pt, valid,
+                     slots, offsets, args[5:])
     fused_pe_link_attention_mixed.launches += 1
+    return out
+
+
+def launch_fwd(lib, fn, err_fn, keys, ps, pt, valid, slots, offsets, rest,
+               ints=()):
+    """Either table's forward kernels: entry ``fn`` of ``lib`` (error text
+    from ``err_fn``) on checked inputs, the compacted slots and ``rest`` =
+    (q, w1, b1, g, b, w2f, cbias, att, bias), with ``ints`` after (B, C,
+    O, dh, K). Returns (out, m, l)."""
+    bsz, c, o = keys.shape
+    k, _, dh = rest[1].shape
+    f32 = dict(dtype=torch.float32, device=keys.device)
+    s = torch.empty((bsz * c,), **f32)      # each valid slot's logit
+    out = torch.empty((bsz, o), **f32)
+    m = torch.empty((bsz,), **f32)
+    l = torch.empty((bsz,), **f32)
+    ptrs = [t.data_ptr() for t in (keys, ps, pt, valid, slots, offsets,
+                                   *rest, s, out, m, l)]
+    with torch.cuda.device(keys.device):
+        err = getattr(lib, fn)(
+            *ptrs, bsz, c, o, dh, k, *ints, tile_slots(o, dh),
+            int(keys.dtype == torch.bfloat16),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{fn} launch failed: "
+                           + getattr(lib, err_fn)(err).decode())
     return out, m, l
 
 
@@ -280,10 +295,15 @@ def fused_pe_link_attention_mixed_bwd_plain(
     xb, rb, yb, hb = direction(pt, ps)
     w2 = w2f.float()
     classes = [e == k for k in range(k_n)]
-    pe = torch.zeros(keys.shape, dtype=torch.float32, device=keys.device)
+    pe_a = torch.zeros(keys.shape, dtype=torch.float32, device=keys.device)
+    pe_b = torch.zeros_like(pe_a)
     for k, sel in enumerate(classes):
-        pe[sel] = ha[sel] @ w2[k] + hb[sel] @ w2[k]
-    xj = keys.float() + pe + cbias[e]                          # [B, C, O]
+        pe_a[sel] = ha[sel] @ w2[k]
+        pe_b[sel] = hb[sel] @ w2[k]
+    # xj summed in the plain forward's order, so that the plain pair's
+    # softmax gradient cancels against its forward's out (as the JAX
+    # pair's and the kernel pair's do)
+    xj = keys.float() + pe_a + pe_b + cbias[e]                 # [B, C, O]
     dxj, dq, datt = attend_backward(xj, valid, q, att, m, l, g_out, delta)
     dxc = dxj.to(kdt).float()
 

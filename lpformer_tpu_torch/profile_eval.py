@@ -6,10 +6,11 @@ On the combined context table (presets.COLLAB_LIKE_CONFIG), or with
 ``--classic`` on the classic per-class table
 (presets.COLLAB_LIKE_CLASSIC_CONFIG):
 
-1. The table's fused PE+attention forward kernel alone on chip_smoke.py's
-   main-path inputs: its device time per launch from the profiler, beside
-   the CUDA-event time per call of 20 back-to-back wrapper calls and the
-   work's bound.
+1. The table's fused PE+attention forward wrapper alone on chip_smoke.py's
+   main-path inputs, bf16 and f32: its device time per call and every
+   device kernel it launches (the slot compaction's ops and the three
+   forward kernels) from the profiler, beside the CUDA-event time per call
+   of 20 back-to-back wrapper calls and the work's bound.
 2. The collab-like eval sweep (presets.py, random weights): after one
    warm-up sweep, a traced test_standard sweep (propagate once + every
    score batch): wall time, device busy time (the CUDA kernels' self
@@ -37,7 +38,7 @@ from lpformer_tpu_torch.presets import (
 )
 from lpformer_tpu_torch.utils import measure
 from lpformer_tpu_torch.utils.measure import (
-    card_line, device_kernel_ms, time_ms, trace_device,
+    card_line, print_wrapper_trace, time_ms, trace_device,
 )
 
 
@@ -58,13 +59,11 @@ def main(classic: bool = False, top: int = 12) -> None:
             return op(**a)
 
         bound, by, nv = bound_ms(a)
-        # both tables' forward kernels are instances of this template; a
-        # call launches only its own table's
-        print(f"kernel {str(dtype)[6:]}: device "
-              f"{device_kernel_ms(call, 'pe_attention_fwd_kernel'):.4f} ms "
-              f"per launch (profiler), {time_ms(call, 10, per=20):.4f} ms "
-              f"per back-to-back call (events), bound {bound:.5f} ms "
-              f"({by}); {nv} valid slots [{card}]")
+        print(f"forward wrapper {str(dtype)[6:]}: "
+              f"{time_ms(call, 10, per=20):.4f} ms per back-to-back call "
+              f"(events), bound {bound:.5f} ms ({by}); {nv} valid slots "
+              f"[{card}]")
+        print_wrapper_trace(f"forward wrapper {str(dtype)[6:]}", call, card)
 
     cfg = COLLAB_LIKE_CLASSIC_CONFIG if classic else COLLAB_LIKE_CONFIG
     ds = synthetic_dataset(**COLLAB_LIKE_DATA, device=dev)

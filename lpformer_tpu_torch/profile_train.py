@@ -13,10 +13,11 @@ training steps of batch 4096 with the default dropouts, then traces
 kernels' self time), the device idle share, and the kernels that take the
 most device time, with their launch counts. The profiler's own host
 overhead is inside the wall time, so the idle share is an upper bound.
-With ``--classic`` it then traces the classic table's backward wrapper
-alone, at the main-path shape and at the ddi-like classic blocks, and with
-``--ddi`` the combined table's, at the main-path shape and at O = dh = 256
-with the ddi-like density; each lists every kernel it launches.
+With ``--classic`` it then traces the classic table's forward and
+backward wrappers alone, at the main-path shape and at the ddi-like
+classic blocks, and with ``--ddi`` the combined table's, at the main-path
+shape and at O = dh = 256 with the ddi-like density; each lists every
+kernel it launches.
 
 Needs a CUDA card.
 """
@@ -35,7 +36,9 @@ from lpformer_tpu_torch.presets import (
     COLLAB_LIKE_DATA, DDI_LIKE_BATCH, DDI_LIKE_CONFIG, DDI_LIKE_DATA,
 )
 from lpformer_tpu_torch.train import optim, step as step_mod
-from lpformer_tpu_torch.utils.measure import card_line, trace_device
+from lpformer_tpu_torch.utils.measure import (
+    card_line, print_wrapper_trace, trace_device,
+)
 
 
 def main(steps: int = 5, classic: bool = False, ddi: bool = False,
@@ -78,17 +81,18 @@ def main(steps: int = 5, classic: bool = False, ddi: bool = False,
         print(f"  {ms / steps:9.3f} ms/step  {count / steps:6.1f}x/step  "
               f"{name[:100]}")
     if classic or ddi:
-        trace_bwd(dev, card, classic)
+        trace_wrappers(dev, card, classic)
 
 
-def trace_bwd(dev, card, classic: bool, calls: int = 10) -> None:
-    """A table's backward wrapper alone, bf16, each shape traced over
-    ``calls`` calls: every device kernel it launches (the zeroed outputs,
-    the slot compaction's ops, the tile kernels), per call. The classic
-    table at the main-path shape (``measure.classic_kernel_inputs``) and at
-    the ddi-like classic blocks (O = dh = 256); the combined table at the
-    main-path shape (``measure.kernel_inputs``) and at O = dh = 256 with
-    the ddi-like density (``measure.ddi_link_counts``)."""
+def trace_wrappers(dev, card, classic: bool, calls: int = 10) -> None:
+    """A table's forward and backward wrappers alone, bf16, each shape
+    traced over ``calls`` calls: every device kernel each launches (the
+    slot compaction's ops, the zeroed outputs, the tile kernels), per call.
+    The classic table at the main-path shape
+    (``measure.classic_kernel_inputs``) and at the ddi-like classic blocks
+    (O = dh = 256); the combined table at the main-path shape
+    (``measure.kernel_inputs``) and at O = dh = 256 with the ddi-like
+    density (``measure.ddi_link_counts``)."""
     from lpformer_tpu_torch.ops import pe_attention as pa
     from lpformer_tpu_torch.ops import pe_attention_mixed as pam
     from lpformer_tpu_torch.presets import DDI_LIKE_CLASSIC_WIDTHS
@@ -97,29 +101,27 @@ def trace_bwd(dev, card, classic: bool, calls: int = 10) -> None:
     )
 
     if classic:
-        table, bwd, inputs = ("classic", pa.fused_pe_link_attention_bwd,
-                              classic_kernel_inputs)
+        table, fwd, bwd, inputs = ("classic", pa.fused_pe_link_attention,
+                                   pa.fused_pe_link_attention_bwd,
+                                   classic_kernel_inputs)
         wide = ("ddi-like classic", dict(widths=DDI_LIKE_CLASSIC_WIDTHS,
                                          o=256, dh=256))
     else:
-        table, bwd, inputs = ("combined",
-                              pam.fused_pe_link_attention_mixed_bwd,
-                              kernel_inputs)
+        table, fwd, bwd, inputs = ("combined",
+                                   pam.fused_pe_link_attention_mixed,
+                                   pam.fused_pe_link_attention_mixed_bwd,
+                                   kernel_inputs)
         wide = ("ddi-like density", dict(o=256, dh=256,
                                          counts=ddi_link_counts))
     for label, kw in (("main", {}), wide):
-        a = bwd_inputs(inputs(dev, torch.bfloat16, **kw))
-        bwd(**a)
-        wall_ms, busy_ms, rows = trace_device(
-            lambda: [bwd(**a) for _ in range(calls)], top=40)
-        print(f"{table} backward wrapper, {label} shape, "
-              f"{int(a['valid'].sum())} valid slots (traced, {calls} "
-              f"calls): device busy {busy_ms / calls:.4f} ms/call, wall "
-              f"{wall_ms / calls:.4f} ms/call [{card}]")
-        for ms, count, name in rows:
-            print(f"  {ms / calls:9.4f} ms/call  {count / calls:4.1f}x/call"
-                  f"  {name[:100]}")
-        del a
+        a = inputs(dev, torch.bfloat16, **kw)
+        nv = int(a["valid"].sum())
+        print_wrapper_trace(f"{table} forward wrapper, {label} shape, {nv} "
+                            f"valid slots", lambda: fwd(**a), card, calls)
+        b = bwd_inputs(a)
+        print_wrapper_trace(f"{table} backward wrapper, {label} shape, {nv} "
+                            f"valid slots", lambda: bwd(**b), card, calls)
+        del a, b
 
 
 if __name__ == "__main__":

@@ -67,24 +67,6 @@ def time_ms(fn, reps: int, per: int = 1, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def device_kernel_ms(fn, name: str, calls: int = 10) -> float:
-    """Mean device time per launch of the CUDA kernels whose name contains
-    ``name``, over ``calls`` calls of ``fn`` traced by torch.profiler."""
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 acc_events=True) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and name in e.key]
-    n = sum(e.count for e in rows)
-    if n == 0:
-        raise RuntimeError(f"the trace holds no device kernel named {name}")
-    return sum(e.self_device_time_total for e in rows) / 1e3 / n
-
-
 def trace_device(fn, top: int = 12):
     """Run ``fn`` once under torch.profiler and return (wall ms, device
     busy ms, the ``top`` device kernels as (ms, count, name)). Busy is the
@@ -103,6 +85,22 @@ def trace_device(fn, top: int = 12):
     rows.sort(key=lambda e: -e.self_device_time_total)
     return wall_ms, busy_ms, [(e.self_device_time_total / 1e3, e.count, e.key)
                               for e in rows[:top]]
+
+
+def print_wrapper_trace(label, fn, card, calls: int = 10) -> None:
+    """Trace ``calls`` calls of a kernel wrapper ``fn`` (after one warm-up
+    call) and print its device busy time per call and every device kernel
+    it launches (its compaction's ops, its memsets, its own kernels), per
+    call."""
+    fn()
+    wall_ms, busy_ms, rows = trace_device(
+        lambda: [fn() for _ in range(calls)], top=40)
+    print(f"{label} (traced, {calls} calls): device busy "
+          f"{busy_ms / calls:.4f} ms/call, wall {wall_ms / calls:.4f} "
+          f"ms/call [{card}]")
+    for ms, count, name in rows:
+        print(f"  {ms / calls:9.4f} ms/call  {count / calls:4.1f}x/call  "
+              f"{name[:100]}")
 
 
 def _link_counts(g, b, c):

@@ -312,29 +312,39 @@ def _class0_count(a, widths, n):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("tile_plus_one", [False, True])
+@pytest.mark.parametrize("case", ["random", "class TS+1", "all dead"])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("o,dh", [(O, DH)] + WIDTHS)
-def test_kernels_match_plain_on_card(bf16, o, dh, tile_plus_one):
-    """Both kernels against their plain versions; with ``tile_plus_one``
-    class 0 holds one slot more than a backward tile. The backward runs
-    under ``set_sync_debug_mode("error")``: a host synchronisation in it
-    (a ``.item()``, a ``nonzero``) fails the test."""
+def test_kernels_match_plain_on_card(bf16, o, dh, case):
+    """Both kernels against their plain versions; with "class TS+1" class
+    0 holds one slot more than a tile, with "all dead" no slot is valid.
+    Both wrappers run under ``set_sync_debug_mode("error")``: a host
+    synchronisation in them (a ``.item()``, a ``nonzero``) fails the
+    test."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     a = _inputs(MISALIGNED, seed=5, bf16=bf16, o=o, dh=dh)
-    if tile_plus_one:
+    if case == "class TS+1":
         a = _class0_count(a, MISALIGNED, tpa.tile_slots(o, dh) + 1)
+    if case == "all dead":
+        a["valid"][:] = False
+        a["ps"][:] = a["pt"][:] = 0
     t = {n: v.cuda() for n, v in _torch_args(a, bf16=bf16).items()}
     before = (tpa.fused_pe_link_attention.launches,
               tpa.fused_pe_link_attention_bwd.launches)
-    got = tpa.fused_pe_link_attention(**t, class_widths=MISALIGNED)
+    tpa._load()          # the builds synchronise; the wrappers must not
+    tpa._load_bwd()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tpa.fused_pe_link_attention(**t, class_widths=MISALIGNED)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     out, m, l = tpa.fused_pe_link_attention_plain(**t,
                                                   class_widths=MISALIGNED)
     g_out = torch.as_tensor(_cot(5, o=o)).cuda()
     args = [t[n] for n in ORDER[:-1]] + [m, l, g_out,
                                          (g_out * (out - t["bias"])).sum(-1)]
-    tpa._load_bwd()      # the first call's build is not the backward's
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:

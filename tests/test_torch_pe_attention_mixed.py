@@ -154,35 +154,64 @@ def test_kernel_input_checks(name, bad, err):
         tpam._check(*a.values())
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bf16", [False, True])
-def test_kernel_matches_plain_on_card(bf16):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card")
-    a = _torch_args(_inputs(3, seed=5, mode="mixed"), bf16=bf16)
-    a = {k: v.cuda() for k, v in a.items()}
+def _card_inputs(case, seed, o=O, dh=DH):
+    """Inputs of the card tests: "mixed", ``_inputs``' layout (an empty
+    link, a full one); "class TS+1", every slot valid and class 0 holding
+    one slot more than a kernel tile, the first in (link, column) order;
+    "all dead", no valid slot."""
+    a = _inputs(3, seed=seed, mode="mixed", o=o, dh=dh)
+    if case == "mixed":
+        return a
+    rng = np.random.default_rng(seed + 1)
+    valid = np.full((B, C), case == "class TS+1")
+    first = np.arange(B * C).reshape(B, C) <= tpam.tile_slots(o, dh)
+    ecls = np.where(first, 0, rng.integers(1, 3, (B, C)))
+    a.update(valid=valid, ecls=(ecls * valid).astype(np.int32))
+    for n in ("ps", "pt"):
+        a[n] = (rng.random((B, C)) * 0.1).astype(np.float32) * valid
+    return a
+
+
+def _card_run(a, bf16):
+    """The wrapper on the card under ``set_sync_debug_mode("error")`` (a
+    host synchronisation fails it), one launch counted; then the plain
+    version on the same tensors."""
+    a = {k: v.cuda() for k, v in _torch_args(a, bf16=bf16).items()}
+    tpam._load()         # the build synchronises; the wrapper must not
     before = tpam.fused_pe_link_attention_mixed.launches
-    got = tpam.fused_pe_link_attention_mixed(**a)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tpam.fused_pe_link_attention_mixed(**a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert tpam.fused_pe_link_attention_mixed.launches == before + 1
-    want = tpam.fused_pe_link_attention_mixed_plain(**a)
+    return got, tpam.fused_pe_link_attention_mixed_plain(**a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "class TS+1", "all dead"])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_matches_plain_on_card(bf16, case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    got, want = _card_run(_card_inputs(case, seed=5), bf16)
     tol = 2e-3 if bf16 else 1e-4
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=tol, atol=tol)
+    if case == "all dead":
+        assert bool((got[0] == want[0]).all())   # the bias, exactly
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["mixed", "class TS+1", "all dead"])
 @pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("o,dh", WIDTHS)
-def test_kernel_matches_plain_on_card_at_widths(o, dh, bf16):
+def test_kernel_matches_plain_on_card_at_widths(o, dh, bf16, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    a = _torch_args(_inputs(3, seed=o + dh, mode="mixed", o=o, dh=dh),
-                    bf16=bf16)
-    a = {k: v.cuda() for k, v in a.items()}
-    got = tpam.fused_pe_link_attention_mixed(**a)
-    torch.cuda.synchronize()
-    want = tpam.fused_pe_link_attention_mixed_plain(**a)
+    got, want = _card_run(_card_inputs(case, seed=o + dh, o=o, dh=dh), bf16)
     tol = 2e-3 if bf16 else 1e-4
     for x, y in zip(got, want):
         torch.testing.assert_close(x, y, rtol=tol, atol=tol)

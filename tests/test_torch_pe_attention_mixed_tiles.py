@@ -1,14 +1,15 @@
-"""The combined table's backward on the tile kernels
-(csrc/pe_attention_bwd_tiles.cuh, through csrc/pe_attention_mixed_bwd.cu):
-the slot compaction both tables' wrappers run, ``compact_tagged_slots``,
-against a numpy reference (the combined table's tags and the classic
-table's column blocks), and the tile mirror of
-``test_torch_pe_attention_tiles.py`` fed by the combined table's slots,
-held to the plain backward (``fused_pe_link_attention_mixed_bwd_plain``)
-and to the JAX package's mixed Pallas VJP (interpret mode). On the card
-(``cuda`` marker) the kernels are held to the plain backward, and both
-tables' wrappers are run at the main shape under
-``set_sync_debug_mode("error")``.
+"""The combined table's forward and backward on the tile kernels
+(csrc/pe_attention_{fwd,bwd}_tiles.cuh, through
+csrc/pe_attention_mixed_{fwd,bwd}.cu): the slot compaction both tables'
+wrappers run, ``compact_tagged_slots``, against a numpy reference (the
+combined table's tags and the classic table's column blocks), and the
+tile mirrors of ``test_torch_pe_attention_tiles.py`` fed by the combined
+table's slots, held to the plain forward and backward
+(``fused_pe_link_attention_mixed_plain``, ``..._bwd_plain``) and to the
+JAX package's mixed Pallas forward and VJP (interpret mode). On the card
+(``cuda`` marker) the backward kernels are held to the plain backward,
+and both tables' wrappers, forward and backward, are run at the main
+shape under ``set_sync_debug_mode("error")``.
 
 A link's valid slots of the combined table mix their classes, so the
 compaction splits a link into up to K runs, one per class; small tiles in
@@ -27,7 +28,9 @@ from test_torch_pe_attention_mixed import _inputs, _jax, _torch_args
 from test_torch_pe_attention_mixed_bwd import (
     DIFF, _cot, _jax_grads, assert_close_card, assert_close_scaled,
 )
-from test_torch_pe_attention_tiles import NAMES, mirror_bwd
+from test_torch_pe_attention_tiles import (
+    NAMES, assert_fwd_close, mirror_bwd, mirror_fwd,
+)
 
 from lpformer_tpu_torch.ops import pe_attention as tpa
 from lpformer_tpu_torch.ops import pe_attention_mixed as tpam
@@ -35,6 +38,8 @@ from lpformer_tpu_torch.ops import pe_attention_mixed as tpam
 K = 3
 ORDER = ("keys", "ps", "pt", "valid", "ecls", "q", "w1", "b1", "g", "b",
          "w2f", "cbias", "att")
+# the forward mirror's arguments: no class source, the bias last
+FWD_ORDER = tuple(n for n in ORDER if n != "ecls") + ("bias",)
 
 
 def _reference(valid, ecls, k):
@@ -146,7 +151,9 @@ def _layout(case, b, c, ts, seed):
     valid = rng.random((b, c)) < 0.6
     valid[0] = False
     ecls = rng.integers(0, K, (b, c))
-    if case == "cut runs":
+    if case == "all dead":
+        valid[:] = False
+    elif case == "cut runs":
         valid[2] = True
         ecls[2] = 1
     else:
@@ -181,6 +188,56 @@ MIRROR_CASES = {
     "class count TS+1": ("count TS+1", 16, 16),
     "widths 70/36": ("cut runs", 70, 36),
 }
+
+
+# ... and the forward's: (u, u) links, whose ps and pt are equal (src =
+# tgt), and a batch with no valid slot
+FWD_MIRROR_CASES = dict(MIRROR_CASES, **{
+    "(u, u) links": ("cut runs", 16, 16),
+    "all dead": ("all dead", 16, 16),
+})
+
+
+def tagged_mirror_fwd(t, **kw):
+    """``mirror_fwd`` over ``compact_tagged_slots``' list, from the mixed
+    plain forward's inputs ``t`` (by name)."""
+    slots, offsets = tpam.compact_tagged_slots(t["valid"], t["ecls"], K)
+    return mirror_fwd(*[t[n] for n in FWD_ORDER], slots, offsets, **kw)
+
+
+@pytest.mark.parametrize("case", list(FWD_MIRROR_CASES))
+def test_mirror_fwd_matches_mixed_plain_f32(case):
+    layout, o, dh = FWD_MIRROR_CASES[case]
+    valid, ecls = _layout(layout, 8, 16, 8, seed=len(case))
+    a = _draw(valid, ecls, len(case), o=o, dh=dh)
+    if case == "(u, u) links":         # links 2 and 3: ppr(u, v) twice
+        a["pt"][2:4] = a["ps"][2:4]
+    t = _torch_args(a)
+    stats = {}
+    got = tagged_mirror_fwd(t, stats=stats)
+    want = tpam.fused_pe_link_attention_mixed_plain(**t)
+    if layout == "cut runs":
+        assert stats["cut_runs"] > 0
+    elif layout == "all dead":
+        assert stats["tiles"] == 0
+    else:
+        _, offsets = tpam.compact_tagged_slots(t["valid"], t["ecls"], K)
+        assert int(offsets[1]) == 8 + (layout == "count TS+1")
+    assert not bool(t["valid"][0].any())         # link 0 is empty
+    assert_fwd_close(got, want, t["valid"], t["bias"])
+
+
+@pytest.mark.parametrize("mode", ["mixed", "single"])
+def test_mirror_fwd_matches_mixed_pallas_f32(mode):
+    """The forward's tile algorithm over the combined compaction against
+    the JAX package's mixed Pallas forward (interpret mode): out, m and l.
+    Tiles of 4 cut the full link's runs."""
+    a = _inputs(K, seed=14, mode=mode)
+    t = _torch_args(a)
+    stats = {}
+    got = tagged_mirror_fwd(t, ts=4, stats=stats)
+    assert stats["cut_runs"] > 0
+    assert_fwd_close(got, _jax(a), t["valid"], t["bias"])
 
 
 @pytest.mark.parametrize("case", list(MIRROR_CASES))
@@ -309,6 +366,45 @@ def test_backward_never_syncs_at_the_main_shape(table):
     for n, x, y in zip(NAMES, got, want):
         assert x.dtype == y.dtype, n
         assert_close_card(x, y, 2e-2, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["combined", "classic"])
+def test_forward_never_syncs_at_the_main_shape(table):
+    """Both tables' forward wrappers under ``set_sync_debug_mode("error")``
+    at the main path's B and C, as the backward's test above, at O = dh =
+    16; the outputs held to the plain forward at chip_smoke.py's bf16
+    tolerance: max |err| 1e-2 on out and m and relative on l, mean |err|
+    1e-4 on out (a flipped bf16 rounding of h moves an output by up to
+    ~5e-3; a logic error is O(0.1))."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from lpformer_tpu_torch.utils import measure
+
+    if table == "combined":
+        mod, fwd, plain = (tpam, tpam.fused_pe_link_attention_mixed,
+                           tpam.fused_pe_link_attention_mixed_plain)
+        a = measure.kernel_inputs("cuda", torch.bfloat16, o=16, dh=16)
+    else:
+        mod, fwd, plain = (tpa, tpa.fused_pe_link_attention,
+                           tpa.fused_pe_link_attention_plain)
+        a = measure.classic_kernel_inputs("cuda", torch.bfloat16, o=16,
+                                          dh=16)
+    assert a["valid"].numel() > 4096
+    mod._load()          # the build synchronises; the forward must not
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, m, l = fwd(**a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    want = plain(**a)
+    assert float((out - want[0]).abs().max()) <= 1e-2
+    assert float((out - want[0]).abs().mean()) <= 1e-4
+    assert float((m - want[1]).abs().max()) <= 1e-2
+    assert float(((l - want[2]).abs() / want[2].abs().clamp_min(1.0)).max()
+                 ) <= 1e-2
 
 
 @pytest.mark.cuda

@@ -5,19 +5,26 @@ kernel or plain version, against the plain pair, on the ddi-like preset
 
 The op's backward recomputes each valid slot's xj and reads the forward's
 saved m, l and out, so where its two halves sum xj in different orders
-the softmax's gradient no longer cancels bit for bit. The forward kernel
-walks a link's slots on CUDA cores and the tile backward sums xj on the
-tensor cores, so the kernel pair's gradients differ from the plain
-pair's most at ``att_layers/0/lin_l/w``, the weight that makes the
-queries; a pair of halves that share one order does not show it. The
-test holds every pair (kernel / kernel, kernel / plain, plain / kernel)
-to chip_smoke.py's step tolerances at each draw (params, negatives and
-train links from the draw's seed; draw 0 is chip_smoke.py's own), with
-dropout off and the plain scatter-add so only the op's halves differ.
-Run with ``-s`` to see each pair's readings.
+the softmax's gradient no longer cancels bit for bit. The kernels of both
+halves take xj, s and alpha from one tile prologue
+(csrc/pe_attention_tiles.cuh), so the kernel pair shares one order, as
+the plain pair does; a mixed pair (kernel / plain, plain / kernel) does
+not, and its gradients differ from the plain pair's most at
+``att_layers/0/lin_l/w``, the weight that makes the queries. The test
+holds every pair (kernel / kernel, kernel / plain, plain / kernel) to
+chip_smoke.py's step tolerances at each draw (params, negatives and train
+links from the draw's seed; draw 0 is chip_smoke.py's own), with dropout
+off and the plain scatter-add so only the op's halves differ, and the
+kernel pair's ``att_layers/0/lin_l/w`` to 5e-3. Run with ``-s`` to see
+each pair's readings.
 
 Tolerances: chip_smoke.py's STEP_LOSS_TOL (|loss difference| 1e-3) and
-STEP_GRAD_TOL (2e-2 relative L2 per gradient leaf).
+STEP_GRAD_TOL (2e-2 relative L2 per gradient leaf). KERNEL_PAIR_Q_TOL,
+5e-3 on the kernel pair's ``att_layers/0/lin_l/w``: a kernel pair that
+shares one order read 2.05e-3 there at draw 0 (PERF.md section 6), so
+5e-3 leaves 2.4x of margin over that reading; a kernel pair whose halves
+summed xj in different orders read 7.8e-3 to 1.85e-2 over these four
+draws.
 """
 import dataclasses
 
@@ -25,6 +32,7 @@ import pytest
 import torch
 
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-3, 2e-2
+KERNEL_PAIR_Q_TOL = 5e-3
 Q_LEAF = ("att_layers", 0, "lin_l", "w")
 
 
@@ -102,4 +110,6 @@ def test_op_pairs_match_plain_pair_in_a_ddi_like_step(ddi_like, seed,
               f"{'/'.join(map(str, Q_LEAF))} {rel[q]:.3e}")
         if abs(loss - loss_p) > STEP_LOSS_TOL or rel[i] > STEP_GRAD_TOL:
             bad.append((name, abs(loss - loss_p), rel[i], paths[i]))
+        if name == "kernel fwd + kernel bwd" and rel[q] > KERNEL_PAIR_Q_TOL:
+            bad.append((name, rel[q], Q_LEAF))
     assert not bad, bad
