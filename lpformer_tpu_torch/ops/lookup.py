@@ -6,18 +6,22 @@
 in exact int32 arithmetic with wraparound: the batched membership / value
 reduction behind ``ops/search.py:fused_row_member_values``, the opt-in
 route of every row lookup of context extraction
-(``LPFORMER_FUSED_LOOKUP=1``). Row ids are unique per row, so a real query
-matches at most one entry and its sums are that entry's lane values, bit
-for bit; a pad query matches every pad entry of its row, and its sums may
-wrap (callers mask those lanes).
+(``LPFORMER_FUSED_LOOKUP=1``). Context extraction's rows hold unique real
+ids, so a real query matches at most one entry and its sums are that
+entry's lane values, bit for bit; a pad query matches every pad entry of
+its row, and its sums may wrap (callers mask those lanes). The function
+itself takes any rows: unsorted, with repeats, any int32 id.
 
 ``fused_lookup`` launches the hand-written CUDA kernel
 ``csrc/fused_lookup.cu`` on CUDA tensors (built with nvcc for sm_90a at
 first use, loaded with ctypes) and runs ``fused_lookup_plain``, the same
 sums in torch ops, on CPU tensors. There is no fallback between the two.
+The kernel hashes each row's queries into a table in shared memory and
+streams the row's entries past it; ``hash_plan`` sizes its passes.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
@@ -27,6 +31,36 @@ from lpformer_tpu_torch.ops._cuda import bind, build_cuda
 _LIB = None
 # elements of the [b, L, Q, K] int64 intermediate of the plain version
 _PLAIN_CHUNK = 1 << 25
+# the kernel's multiplicative hash: slot = (uint32(id) * HASH_MULT) >> (32 -
+# log2 capacity), then linear probing
+HASH_MULT = 0x9E3779B1
+# a block's hash tables, bytes of shared memory at most (no opt-in needed)
+SMEM_BYTES = 48 * 1024
+THREADS = 256            # a block's threads, split evenly over its rows
+MAX_CHUNK = 1024         # queries hashed at once
+MAX_LANES = 4            # lanes summed per pass
+
+
+@functools.lru_cache(maxsize=None)
+def hash_plan(k: int, q: int, n_l: int) -> Tuple[int, int, int, int]:
+    """The kernel's passes for rows of K entries, Q queries and L lanes:
+    (chunk, log2h, lanes_per_pass, rows_per_block). A chunk of at most
+    MAX_CHUNK of a row's queries is hashed into a table of 2^log2h >= 2 *
+    chunk slots (a 64-bit key and lanes_per_pass <= MAX_LANES uint32 sums
+    each: 48 KB at most) and all K entries stream past it;
+    rows_per_block rows share a block, each with THREADS / rows_per_block
+    threads, about 8 entries or queries a thread, within SMEM_BYTES."""
+    lanes_per_pass = min(n_l, MAX_LANES)
+    chunk = max(1, min(q, MAX_CHUNK))
+    log2h = max(1, (2 * chunk - 1).bit_length())
+    row_bytes = (1 << log2h) * (8 + 4 * lanes_per_pass)
+    group = 32
+    while group < THREADS and group * 8 < max(k, chunk):
+        group *= 2
+    rows_per_block = THREADS // group
+    while rows_per_block > 1 and rows_per_block * row_bytes > SMEM_BYTES:
+        rows_per_block //= 2
+    return chunk, log2h, lanes_per_pass, rows_per_block
 
 
 def build() -> Tuple[str, str]:
@@ -38,7 +72,7 @@ def build() -> Tuple[str, str]:
 def _load():
     global _LIB
     if _LIB is None:
-        _LIB = bind(build()[0], "fused_lookup", 4, 4,
+        _LIB = bind(build()[0], "fused_lookup", 4, 8,
                     "fused_lookup_error_string")
     return _LIB
 
@@ -87,7 +121,7 @@ def _check(rows, queries, lanes):
 
 
 def fused_lookup(
-    rows: torch.Tensor,      # [B, K] int32, ids unique per row
+    rows: torch.Tensor,      # [B, K] int32, any ids, any order
     queries: torch.Tensor,   # [B, Q] int32
     lanes: torch.Tensor,     # [B, L, K] int32 value lanes (f32 bit patterns ok)
 ) -> torch.Tensor:           # [B, L, Q] int32
@@ -104,7 +138,7 @@ def fused_lookup(
     with torch.cuda.device(rows.device):
         err = lib.fused_lookup(
             rows.data_ptr(), queries.data_ptr(), lanes.data_ptr(),
-            out.data_ptr(), b, k, q, n_l,
+            out.data_ptr(), b, k, q, n_l, *hash_plan(k, q, n_l),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError("fused_lookup launch failed: "

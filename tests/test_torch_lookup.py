@@ -12,6 +12,8 @@ calls that took it. The CUDA kernel is held to the plain version on the
 card (the ``cuda``-marked test here, and chip_smoke.py at the
 context-extraction shapes).
 """
+import zlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -267,20 +269,254 @@ def test_kernel_input_checks(name, bad, err):
         tlookup._check(**a)
 
 
+# ---- the kernel's hash tables, mirrored on the CPU --------------------------
+
+I32_MIN, I32_MAX = -2 ** 31, 2 ** 31 - 1
+EMPTY = np.uint64(2 ** 64 - 1)
+
+
+def _bucket(ids, log2h):
+    """The kernel's multiplicative hash of int32 ids (numpy arrays)."""
+    x = ids.astype(np.int64).astype(np.uint64) & np.uint64(0xFFFFFFFF)
+    x = (x * np.uint64(tlookup.HASH_MULT)) & np.uint64(0xFFFFFFFF)
+    return (x >> np.uint64(32 - log2h)).astype(np.int64)
+
+
+def mirror_hash_lookup(rows, queries, lanes):
+    """csrc/fused_lookup.cu in numpy, pass for pass as ``hash_plan`` cuts
+    it: per row and chunk of queries, a table of 2^log2h 64-bit keys (the
+    id zero-extended, all ones empty) filled with the queries by linear
+    probing from the multiplicative hash (a repeated query finds its
+    slot); lanes_per_pass lanes at a time, every entry probes the table
+    and an entry that finds its id adds its lanes into that slot in
+    uint32 (repeated entries sum); each query then reads its slot.
+    Returns (out int32 [B, L, Q], the longest probe run)."""
+    b, k = rows.shape
+    q, n_l = queries.shape[1], lanes.shape[1]
+    chunk, log2h, per_pass, _ = tlookup.hash_plan(k, q, n_l)
+    h = 1 << log2h
+    out = np.zeros((b, n_l, q), np.int32)
+    longest = 0
+
+    def keys_of(ids):
+        return ids.astype(np.int64).astype(np.uint64) & np.uint64(0xFFFFFFFF)
+
+    def probe(keys, key, s, claim):
+        nonlocal longest
+        run = 0
+        while keys[s] != key and keys[s] != EMPTY:
+            s, run = (s + 1) % h, run + 1
+        longest = max(longest, run)
+        if keys[s] == EMPTY:
+            if not claim:
+                return -1
+            keys[s] = key
+        return s
+
+    for i in range(b):
+        e_keys, e_buckets = keys_of(rows[i]), _bucket(rows[i], log2h)
+        for q0 in range(0, q, chunk):
+            ids = queries[i, q0:q0 + chunk]
+            keys = np.full(h, EMPTY, np.uint64)
+            q_slots = [probe(keys, kk, s, True)
+                       for kk, s in zip(keys_of(ids), _bucket(ids, log2h))]
+            e_slots = [probe(keys, kk, s, False)
+                       for kk, s in zip(e_keys, e_buckets)]
+            for l0 in range(0, n_l, per_pass):
+                nl = min(per_pass, n_l - l0)
+                sums = np.zeros((nl, h), np.uint32)
+                vals = lanes[i, l0:l0 + nl].view(np.uint32)
+                for j, s in enumerate(e_slots):
+                    if s >= 0:
+                        sums[:, s] += vals[:, j]
+                out[i, l0:l0 + nl, q0:q0 + chunk] = sums[:, q_slots].view(
+                    np.int32)
+    return out, longest
+
+
+def _full_lanes(rng, b, n_l, k):
+    return rng.integers(I32_MIN, I32_MAX + 1, (b, n_l, k),
+                        dtype=np.int64).astype(np.int32)
+
+
+def _colliding_ids(log2h, count, start=-3000):
+    """``count`` distinct int32 ids that all hash to one bucket."""
+    cand = np.arange(start, start + ((2 * count + 16) << log2h),
+                     dtype=np.int64)
+    hit = cand[_bucket(cand.astype(np.int32), log2h) == 0][:count]
+    assert len(hit) == count
+    return hit.astype(np.int32)
+
+
+def _hash_case(name):
+    """(rows, queries, lanes) of one named case: all int32."""
+    rng = np.random.default_rng(zlib.crc32(name.encode()))
+    if name == "repeats_and_pad_runs":
+        rows = rng.integers(0, 12, (5, 40)).astype(np.int32)
+        rows[:, 25:] = N                      # a pad run
+        rows[1] = 7                           # one id over the whole row
+        queries = rng.integers(0, 14, (5, 30)).astype(np.int32)
+        queries[:, :3] = N
+        return rows, queries, _full_lanes(rng, 5, 3, 40)
+    if name == "one_bucket":
+        k = 40
+        log2h = tlookup.hash_plan(k, 24, 2)[1]
+        ids = _colliding_ids(log2h, k + 12)
+        rows = np.stack([rng.permutation(ids[:k]) for _ in range(3)])
+        queries = np.stack([rng.choice(ids, 24, replace=False)
+                            for _ in range(3)])
+        return rows, queries.astype(np.int32), _full_lanes(rng, 3, 2, k)
+    if name == "extreme_ids":
+        special = np.array([I32_MIN, I32_MAX, -1, -2, 0, N], np.int32)
+        rows = np.concatenate([np.repeat(special, 3)[None].repeat(4, 0),
+                               rng.integers(0, N, (4, 14))], 1).astype(
+            np.int32)
+        for r in rows:
+            rng.shuffle(r)
+        queries = np.concatenate([special[None].repeat(4, 0),
+                                  rng.integers(-3, N + 2, (4, 10))], 1)
+        return rows, queries.astype(np.int32), _full_lanes(rng, 4, 2, 32)
+    if name == "wrapping_sums":
+        rows = np.full((3, 20), 9, np.int32)
+        rows[:, 10:] = N
+        queries = np.array([[9, N, 1, 9]] * 3, np.int32)
+        lanes = np.full((3, 2, 20), I32_MAX, np.int32)
+        lanes[:, 1] = I32_MIN
+        return rows, queries, lanes
+    if name == "q1":
+        rows = _rows(rng, 6, 70)
+        for r in rows:
+            rng.shuffle(r)
+        queries = rows[:, 3:4].copy()
+        queries[0, 0] = N + 3                     # absent
+        return rows, queries, _full_lanes(rng, 6, 2, 70)
+    if name.startswith("q_"):     # q_one_chunk, q_chunk_plus_1, ...
+        n_l = 6 if name == "q_chunks_l6" else 2
+        q = {"q_one_chunk": tlookup.MAX_CHUNK,
+             "q_chunk_plus_1": tlookup.MAX_CHUNK + 1,
+             "q_several_chunks": 3 * tlookup.MAX_CHUNK - 5,
+             "q_chunks_l6": 1500}[name]
+        rows = rng.integers(-5, 400, (2, 300)).astype(np.int32)
+        queries = rng.integers(-5, 400, (2, q)).astype(np.int32)
+        return rows, queries, _full_lanes(rng, 2, n_l, 300)
+    if name == "k_long":          # many entries stream past a few queries
+        rows = rng.integers(-5, 5000, (2, 3000)).astype(np.int32)
+        queries = np.concatenate([rows[:, ::97], rng.integers(
+            -5, 5000, (2, 20))], 1).astype(np.int32)
+        return rows, queries, _full_lanes(rng, 2, 3, 3000)
+    if name.startswith("lanes_"):
+        n_l = int(name.split("_")[1])
+        rows = rng.integers(0, 30, (4, 23)).astype(np.int32)
+        queries = rng.integers(-1, 32, (4, 19)).astype(np.int32)
+        return rows, queries, _full_lanes(rng, 4, n_l, 23)
+    if name == "b0":
+        return (np.zeros((0, 7), np.int32), np.zeros((0, 5), np.int32),
+                np.zeros((0, 2, 7), np.int32))
+    if name == "q0":
+        return (rng.integers(0, 9, (3, 7)).astype(np.int32),
+                np.zeros((3, 0), np.int32), _full_lanes(rng, 3, 2, 7))
+    raise KeyError(name)
+
+
+HASH_CASES = (["repeats_and_pad_runs", "one_bucket", "extreme_ids",
+               "wrapping_sums", "q1", "q_one_chunk", "q_chunk_plus_1",
+               "q_several_chunks", "q_chunks_l6", "k_long"]
+              + [f"lanes_{n}" for n in range(1, 7)] + ["b0", "q0"])
+
+
+@pytest.mark.parametrize("name", HASH_CASES)
+def test_hash_mirror_matches_plain_and_pallas(name):
+    """The kernel's algorithm (a hash table of each row's queries per
+    chunk, every entry probing it, repeats summed in their slot in uint32)
+    gives fused_lookup_plain's bits and
+    the JAX kernel's (interpret mode; it takes no B = 0 or Q = 0 call, so
+    those two cases hold to the plain version and the shape alone)."""
+    rows, queries, lanes = _hash_case(name)
+    b, k = rows.shape
+    q, n_l = queries.shape[1], lanes.shape[1]
+    got, longest = mirror_hash_lookup(rows, queries, lanes)
+    plain = tlookup.fused_lookup_plain(torch.as_tensor(rows),
+                                       torch.as_tensor(queries),
+                                       torch.as_tensor(lanes)).numpy()
+    assert got.shape == plain.shape == (b, n_l, q)
+    np.testing.assert_array_equal(got, plain)
+    if b and q:
+        want = np.asarray(jlookup.fused_lookup(
+            jnp.asarray(rows), jnp.asarray(queries), jnp.asarray(lanes),
+            interpret=True))
+        np.testing.assert_array_equal(got, want)
+    chunk = tlookup.hash_plan(k, q, n_l)[0]
+    if name == "one_bucket":
+        assert longest >= 23                   # 24 queries in one run
+    if name == "q_one_chunk":
+        assert chunk == q
+    if name in ("q_chunk_plus_1", "q_several_chunks", "q_chunks_l6"):
+        assert -(-q // chunk) == {"q_chunk_plus_1": 2, "q_several_chunks": 3,
+                                  "q_chunks_l6": 2}[name]
+    if name == "wrapping_sums":                # 10 x INT32_MAX wraps
+        assert got[0, 0, 0] == np.int32(np.int64(10 * I32_MAX)
+                                        .astype(np.int32))
+
+
+@pytest.mark.parametrize("k,q,n_l", [(1, 1, 1), (9, 12, 1), (256, 256, 2),
+                                     (256, 1, 2), (20, 1500, 6),
+                                     (4, 600, 8), (4096, 4096, 20),
+                                     (7, 0, 2)])
+def test_hash_plan_fits_the_block(k, q, n_l):
+    """Every plan fits 48 KB of shared memory a block, keeps the table at
+    most half full, cuts Q only into 16-byte aligned chunks, and passes
+    the lanes at most MAX_LANES at a time."""
+    chunk, log2h, per_pass, rpb = tlookup.hash_plan(k, q, n_l)
+    assert 1 <= chunk <= max(1, min(q, tlookup.MAX_CHUNK))
+    assert (1 << log2h) >= 2 * chunk and (1 << (log2h - 1)) < 2 * chunk \
+        or log2h == 1
+    assert chunk == max(q, 1) or chunk % 4 == 0
+    assert per_pass == min(n_l, tlookup.MAX_LANES)
+    assert rpb in (1, 2, 4, 8)
+    assert rpb * (1 << log2h) * (8 + 4 * per_pass) <= tlookup.SMEM_BYTES
+
+
+def test_kernel_source_shares_the_plan_constants():
+    """The CUDA source's hash and limits are those the mirror and
+    hash_plan use."""
+    import os
+
+    from lpformer_tpu_torch.ops._cuda import CSRC
+
+    src = open(os.path.join(CSRC, "fused_lookup.cu")).read()
+    assert f"kHashMult = 0x{tlookup.HASH_MULT:08X}u;" in src
+    assert f"kSmemBytes = {tlookup.SMEM_BYTES // 1024} * 1024;" in src
+    assert f"kThreads = {tlookup.THREADS};" in src
+    assert f"kMaxLanes = {tlookup.MAX_LANES};" in src
+
+
+def _card_case(name):
+    """Inputs of the card test: the CPU cases, the earlier random shapes
+    (sorted rows), unsorted rows with repeats, and the main-path shapes."""
+    if name in HASH_CASES:
+        return _hash_case(name)
+    b, k, q, n_l = {"s9": (6, 9, 12, 1), "s130": (5, 130, 17, 2),
+                    "s33": (4, 33, 40, 5), "main": (4096, 256, 256, 2),
+                    "wide": (4096, 2000, 3, 6), "unsorted": (512, 300, 77, 3),
+                    "masking_q1": (4096, 256, 1, 2)}[name]
+    rng = np.random.default_rng(b + k)
+    rows = rng.integers(0, 4 * k, (b, k)).astype(np.int32)
+    if name != "unsorted":
+        rows = np.sort(rows, axis=1)
+    queries = rng.integers(0, 4 * k, (b, q)).astype(np.int32)
+    return rows, queries, _full_lanes(rng, b, n_l, k)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,k,q,n_l", SHAPES + [(4096, 256, 256, 2),
-                                                (4096, 2000, 3, 6)])
-def test_kernel_matches_plain_on_card(b, k, q, n_l):
-    """Bit for bit, pads and wraparound included; the last shape runs past
-    the kernel's 1024-entry staging chunk."""
+@pytest.mark.parametrize("name", ["s9", "s130", "s33", "main", "wide",
+                                  "unsorted", "masking_q1"] + HASH_CASES)
+def test_kernel_matches_plain_on_card(name):
+    """Bit for bit, pads, repeats and wraparound included; "wide" runs
+    several chunks of the row, "unsorted" draws rows in no order with
+    repeats, "masking_q1" is ops/masking.py's one query a row."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    rng = np.random.default_rng(b + k)
-    rows = np.sort(rng.integers(0, 4 * k, (b, k)), axis=1).astype(np.int32)
-    queries = rng.integers(0, 4 * k, (b, q)).astype(np.int32)
-    lanes = rng.integers(-2 ** 31, 2 ** 31, (b, n_l, k),
-                         dtype=np.int64).astype(np.int32)
-    t = [torch.as_tensor(x).cuda() for x in (rows, queries, lanes)]
+    t = [torch.as_tensor(x).cuda() for x in _card_case(name)]
     before = tlookup.fused_lookup.launches
     got = tlookup.fused_lookup(*t)
     torch.cuda.synchronize()

@@ -24,9 +24,12 @@ from lpformer_tpu_torch.ops import gather as tgather
 from lpformer_tpu_torch.ops import scatter as tscatter
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# chip_smoke.py's bound on the kernel at hub rows: max |err| over the
+# largest row abs-sum
+SCATTER_TOL = 1e-4
 
 
-def _case(kind, seed=0):
+def _case(kind, seed=0, d=128):
     rng = np.random.default_rng(seed)
     n = 300
     if kind == "2d":
@@ -35,10 +38,15 @@ def _case(kind, seed=0):
         ids = rng.integers(0, n, 900)
         ids[::14] = 7
         ids[-60:] = n - 1
+    elif kind == "one_id":          # every live row on one id
+        ids = np.full(1000, 123)
+    elif kind == "out_of_range":    # ids below 0 and from n up are dropped
+        ids = rng.integers(-40, n + 40, 1100)
     else:
         ids = rng.integers(0, n, 1100)
-    ct = rng.standard_normal(ids.shape + (128,)).astype(np.float32)
-    live = rng.random(ids.shape) < 0.3 if kind == "live" else None
+    ct = rng.standard_normal(ids.shape + (d,)).astype(np.float32)
+    live = (rng.random(ids.shape) < 0.3 if kind in ("live", "one_id")
+            else None)
     return ids.astype(np.int32), ct, n, live
 
 
@@ -57,6 +65,19 @@ def test_plain_matches_pallas(kind, bf16):
         torch.as_tensor(ids), tct, n,
         None if live is None else torch.as_tensor(live))
     assert got.dtype == torch.float32 and got.shape == (n, 128)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("kind", ["live", "one_id"])
+def test_plain_matches_pallas_at_d100(kind):
+    """A width that is no multiple of 4 (the kernel's scalar path), f32,
+    against the JAX kernel in interpret mode."""
+    ids, ct, n, live = _case(kind, seed=2, d=100)
+    want = jscatter(jnp.asarray(ids), jnp.asarray(ct), n, tile=256,
+                    chunk=256, interpret=True, live=jnp.asarray(live))
+    got = tscatter.scatter_rows_add_plain(
+        torch.as_tensor(ids), torch.as_tensor(ct), n, torch.as_tensor(live))
+    assert got.shape == (n, 100)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
@@ -153,21 +174,53 @@ def test_gather_backward_casts_to_table_dtype():
     torch.testing.assert_close(tb.grad, want, rtol=0, atol=0)
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past an
+    aligned address (so no 4-element word of a row is aligned)."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("d", [128, 256, 100])
 @pytest.mark.parametrize("bf16", [False, True])
-def test_kernel_matches_plain_on_card(bf16):
+def test_kernel_matches_plain_on_card(bf16, d):
+    """Every case: random and 2-D ids, a hub row, a live mask, every live
+    row on one id (the most contention), ids out of range, no live mask;
+    at D = 128 and 256 (vector reductions) and 100 (the scalar path), and
+    ct one element off alignment (the scalar path at any D). Tolerance:
+    f32 sums in another order, rtol / atol 1e-5 for sums of a few standard
+    normals; the ~300 terms on the one id cancel, so that case holds, as
+    chip_smoke.py does, max |err| to SCATTER_TOL of the largest row
+    abs-sum (each add rounds at 2^-24 of its partial sum)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    for kind in ("2d", "skewed", "live"):
-        ids, ct, n, live = _case(kind, seed=4)
-        tct = torch.as_tensor(ct).cuda()
-        if bf16:
-            tct = tct.to(torch.bfloat16)
-        a = (torch.as_tensor(ids).cuda(), tct, n,
-             None if live is None else torch.as_tensor(live).cuda())
-        before = tscatter.scatter_rows_add.launches
-        got = tscatter.scatter_rows_add(*a)
-        torch.cuda.synchronize()
-        assert tscatter.scatter_rows_add.launches == before + 1
-        torch.testing.assert_close(got, tscatter.scatter_rows_add_plain(*a),
-                                   rtol=1e-5, atol=1e-5)
+    for kind in ("1d", "2d", "skewed", "live", "one_id", "out_of_range"):
+        for misaligned in (False, True):
+            ids, ct, n, live = _case(kind, seed=4, d=d)
+            tct = torch.as_tensor(ct).cuda()
+            if bf16:
+                tct = tct.to(torch.bfloat16)
+            if misaligned:
+                tct = _misaligned(tct)
+            ids_t = torch.as_tensor(ids).cuda()
+            live_t = None if live is None else torch.as_tensor(live).cuda()
+            before = tscatter.scatter_rows_add.launches
+            got = tscatter.scatter_rows_add(ids_t, tct, n, live_t)
+            torch.cuda.synchronize()
+            assert tscatter.scatter_rows_add.launches == before + 1
+            # the plain version takes in-range ids: the kernel drops the
+            # others, so the reference drops them by the live mask
+            keep = (ids_t >= 0) & (ids_t < n)
+            if live_t is not None:
+                keep &= live_t
+            want = tscatter.scatter_rows_add_plain(ids_t.clamp(0, n - 1),
+                                                   tct, n, keep)
+            if kind != "one_id":
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                continue
+            scale = tscatter.scatter_rows_add_plain(
+                ids_t, tct.float().abs(), n, keep).max()
+            assert (got - want).abs().max() <= SCATTER_TOL * scale
