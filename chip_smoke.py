@@ -11,8 +11,9 @@ Phases, each printing its own lines:
      all at once;
   3. kernels: each kernel against its plain torch version on the card at
      its main-path shapes, with CUDA-event times, the work's bound and a
-     yardstick (the PE+attention wrappers' checked calls, forward and
-     backward, under ``torch.cuda.set_sync_debug_mode("error")``, so a
+     yardstick (the PE+attention and per-link attention wrappers' checked
+     calls, forward and backward, under
+     ``torch.cuda.set_sync_debug_mode("error")``, so a
      host synchronisation fails them): the combined table's pair at
      B=4096, C=128, O=dh=128, K=3
      (bf16 and f32), then at the ddi-like widths O=dh=256 and at O=256,
@@ -352,55 +353,25 @@ def phase_scatter(dev, card):
                   r["all_ms"])
 
 
-def att_composition(keys, q, valid, w, r_bias, att, bias):
-    """The other arm of the bench's attention A/B (bench.py:834-842): the
-    per-link attention as a composition of torch ops, which materialises
-    xj [B, C, O]. A yardstick only; the port never calls it."""
-    xj = torch.matmul(keys, w).float() + r_bias
-    z = torch.nn.functional.leaky_relu(xj * q[:, None, :], 0.2)
-    logits = (z * att.reshape(1, 1, -1)).sum(-1)
-    masked = torch.where(valid, logits, -1e30)
-    m = masked.amax(1, keepdim=True).clamp_min(-5e29)
-    ex = torch.exp(masked - m) * valid
-    alpha = ex / ex.sum(1, keepdim=True).clamp_min(1e-16)
-    return (alpha[..., None] * xj).sum(1) + bias
-
-
-def _ab_arms(a):
-    """The A/B's forward and forward + backward (sum(out^2), grads of keys
-    and q, as bench.py:850-856) of the op and of the composition, on the
-    inputs ``a`` of ``link_attention_inputs``."""
-    from lpformer_tpu_torch.ops.attention import fused_link_attention
-
-    rest = (a["valid"], a["w"], a["r_bias"], a["att"], a["bias"])
-
-    def fwd(impl):
-        return lambda: impl(a["keys"], a["q"], *rest)
-
-    def fwd_bwd(impl):
-        def run():
-            k = a["keys"].detach().requires_grad_(True)
-            qq = a["q"].detach().requires_grad_(True)
-            out = impl(k, qq, *rest)
-            return (out,) + torch.autograd.grad((out ** 2).sum(), (k, qq))
-        return run
-
-    return {"op": (fwd(fused_link_attention), fwd_bwd(fused_link_attention)),
-            "composition": (fwd(att_composition), fwd_bwd(att_composition))}
-
-
 def phase_link_attention(dev):
     """The per-link attention forward and backward kernels vs their plain
     versions at the bench's A/B shape, in f32 (the A/B's dtype, the JSON
     entries) and bf16 (the A/B's torch composition, their yardstick, is
-    timed in phase_attention_ab); returns the two JSON entries."""
+    timed in phase_attention_ab), each wrapper's checked call under
+    ``set_sync_debug_mode("error")``; returns the two JSON entries."""
     from lpformer_tpu_torch.ops import attention as at
 
     names = ("dkeys", "dq", "dw", "dr_bias", "datt")
     entries = None
     for dtype in (torch.float32, torch.bfloat16):
         a = measure.link_attention_inputs(dev, dtype)
-        got = at._fwd(**a)
+        torch.cuda.synchronize()
+        # the wrapper must never wait on the card
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = at._fwd(**a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         want = at.fused_link_attention_plain(**a)
         errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
@@ -427,7 +398,12 @@ def phase_link_attention(dev):
             max(errs), ms, plain_ms, bound, bound_by)
 
         b = measure.link_attention_bwd_inputs(a)
-        got = at.fused_link_attention_bwd(**b)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = at.fused_link_attention_bwd(**b)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         want = at.fused_link_attention_bwd_plain(**b)
         text, max_abs = _bwd_check("link attention backward", names, got,
@@ -456,13 +432,14 @@ def phase_attention_ab(dev, card):
     composition; returns the two kernels' launch counts, which must equal
     the op's calls."""
     from lpformer_tpu_torch.ops import attention as at
+    from lpformer_tpu_torch.profile_kernels import ab_arms
 
     at.fused_link_attention.launches = 0
     at.fused_link_attention_bwd.launches = 0
     calls = [0, 0]
     for dtype in (torch.float32, torch.bfloat16):
         a = measure.link_attention_inputs(dev, dtype)
-        arms = _ab_arms(a)
+        arms = ab_arms(a)
         op_fwd, op_fb = arms["op"]
 
         def counted_fwd():

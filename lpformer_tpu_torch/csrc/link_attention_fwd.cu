@@ -14,138 +14,108 @@
 //
 // What bounds it on an H100: at the bench's A/B shape (B = 4096, C = 128,
 // Dk = 256, O = 128, 80% of the slots valid) the valid key rows are 215 MB
-// in bf16, 67 us at 3.35 TB/s, against 2*Dk*O flops a slot, 28 us on the
-// bf16 tensor cores; in f32 the products (410 us at 67 TFLOP/s) bound it.
-// What the design does about it:
-//   * one warp per link, for any Dk and O: lanes own 4 output columns per
-//     group of 128; no block barriers, only warp shuffles. A link's
-//     running sums over O sit in the warp's slice of shared memory;
-//   * valid slots are found 32 at a time with a ballot over the validity
-//     row, and taken up to 4 at a time: the warp stages their key rows in
-//     its slice of shared memory (as f32, one coalesced read each; dead
-//     slots' rows are never read), then each lane forms the 4 slots' xj
-//     over its columns, so each W_r element read feeds the 4 slots; W_r's
-//     rows sit in shared memory as far as it holds them (all of them in
-//     bf16 at the A/B's shape), the rest are read through the read-only
-//     path (csrc/link_attention_common.cuh);
-//   * the 4 logits go through the online softmax one after another, as
-//     the TPU kernel's per-tile update does for a tile.
-// The products run on the CUDA cores in f32; batching slots through wgmma
-// is later work.
+// in bf16, 64 us at 3.35 TB/s, against 2 Dk O flops a slot, 28 us on the
+// bf16 tensor cores; in f32 the product (410 us at 67 TFLOP/s on the CUDA
+// cores) bounds it.
+// Design, one launch, in one pass: a persistent block takes whole links;
+// per link it lists the valid columns and runs the chunk prologue of
+// csrc/link_attention_tiles.cuh on chunks of up to 128 of them (X = K W_r
+// on mma.sync in bf16, with K gathered by cp.async and W_r resident where
+// it fits; in f32 as exact FMA micro-tiles with K and W_r streamed through
+// two cp.async stages; xj and the logits), then carries the online softmax
+// across the link's chunks as the TPU kernel does across its C tiles:
+// warp 0 takes the chunk's max, the correction and each row's exp(s - m),
+// and two threads per column (each half of the rows) fold the rows into
+// the link's sum in shared memory, the halves added in order. out, m and
+// l are written once per link: no [B, C] scratch, no atomics, and the
+// result is the same from run to run.
 
-#include "link_attention_common.cuh"
+#include "link_attention_tiles.cuh"
 
 namespace {
 
-constexpr int kWarps = 16;              // links in flight per block (at most)
-constexpr int kThreads = kWarps * 32;
-constexpr int kBlocks = 1;              // resident blocks per SM
-
-// floats of a warp's slice of shared memory: ks [kSlots][Dk], xs
-// [kSlots][O], acc [O], each row 16-byte aligned
-__host__ __device__ constexpr size_t fwd_slice(int Dk, int O) {
-  return (size_t)kSlots * (pad4(Dk) + pad4(O)) + pad4(O);
-}
-
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kBlocks)
+__global__ void __launch_bounds__(kThreads)
 link_attention_fwd_kernel(
     const T* __restrict__ keys, const float* __restrict__ q,
     const uint8_t* __restrict__ valid, const T* __restrict__ w,
     const float* __restrict__ rbias, const float* __restrict__ att,
     const float* __restrict__ bias, float* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out,
-    int B, int C, int Dk, int O, int staged) {
+    float* __restrict__ m_out, float* __restrict__ l_out, int B, int C,
+    int Dk, int O, int ts, int dc) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // W_r's leading `staged` rows [staged, O], then the warps' slices
-  T* ws = reinterpret_cast<T*>(smem_raw);
-  float* smem = reinterpret_cast<float*>(
-      smem_raw + staged_bytes(1, staged, O, sizeof(T)));
+  const LinkSmem L{Dk, O, C, ts, dc, (int)sizeof(T)};
+  const LinkPtrs<T> p(smem_raw, L);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int dkp = pad4(Dk), op = pad4(O);
-  // the warp's slice: ks [kSlots][Dk] (the group's key rows, read by every
-  // lane), xs [kSlots][O] (their xj), acc [O] (the link's weighted sum);
-  // xs and acc own columns
-  float* ks = smem + (size_t)warp * fwd_slice(Dk, O);
-  float* xs = ks + kSlots * dkp;
-  float* acc = xs + kSlots * op;
-  const bool vec = (O & 3) == 0;
-  const float zero4[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int i = lane; i < kSlots * dkp; i += 32) ks[i] = 0.f;
-  stage_rows(w, ws, 1, Dk, staged, O);
-  __syncthreads();
-  const SplitRows<T> wr = {ws, w, staged};
+  const int xs = L.xs();
+  const int op = pad16(O);
+  float* acc = p.vec;           // [O] the link's weighted sum
+  float* part = p.vec + 3 * op; // [kParts][O] a chunk's parts of it
+  float* e = p.rows + kE * ts;
+  if (L.resident()) stage_w(w, p.wsm, 0, pad16(Dk), Dk, O, L.ws());
 
-  for (int b = next_link(lane, B); b < B; b = next_link(lane, B)) {
-    for (int o = 4 * lane; o < O; o += kGroup)
-      sts4(acc + o, min(4, O - o), vec, zero4);
-    float m = kNeg / 2, l = 0.f;
-
-    for (int c0 = 0; c0 < C; c0 += 32) {
-      const int cl = c0 + lane;
-      unsigned live =
-          __ballot_sync(kFull, cl < C && valid[(size_t)b * C + cl]);
-      while (live) {
-        int slot[kSlots];
-        const int ns = take_slots(live, c0, slot);
-        __syncwarp();  // the previous group's reads of ks are done
-        stage_keys(keys, (size_t)b * C, slot, ns, Dk, dkp, lane, ks);
-        __syncwarp();
-
-        float part[kSlots] = {0.f, 0.f, 0.f, 0.f};
-        for (int o = 4 * lane; o < O; o += kGroup) {
-          const int n = min(4, O - o);
-          float x[kSlots][4] = {};
-          group_product(wr, ks, dkp, Dk, O, o, n, vec, x);
-          float rb[4], qv[4], av[4];
-          loadn(rbias + o, n, vec, rb);
-          loadn(q + (size_t)b * O + o, n, vec, qv);
-          loadn(att + o, n, vec, av);
-#pragma unroll
-          for (int s = 0; s < kSlots; ++s) {
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              x[s][i] += rb[i];
-              const float z = x[s][i] * qv[i];
-              part[s] += av[i] * (z >= 0.f ? z : 0.2f * z);   // 0 past O
-            }
-            sts4(xs + s * op + o, n, vec, x[s]);
-          }
+  for (int b = blockIdx.x; b < B; b += gridDim.x) {
+    const int nv = list_valid(valid + (size_t)b * C, C, 0, p.list, nullptr,
+                              p.wcnt);
+    for (int o = threadIdx.x; o < O; o += blockDim.x) acc[o] = 0.f;
+    if (threadIdx.x == 0) {
+      p.scal[kM] = kNeg / 2;
+      p.scal[kL] = 0.f;
+    }
+    for (int r0 = 0; r0 < nv; r0 += ts) {
+      const int n = min(ts, nv - r0);
+      chunk_xj<T, false>(keys, q, nullptr, w, rbias, att, L, p, p.list + r0,
+                         n, b);
+      // online softmax: the chunk's max, the correction, each row's weight
+      if (warp == 0) {
+        const float* s = p.rows + kS * ts;
+        float mc = kNeg;
+        for (int r = lane; r < n; r += 32) mc = fmaxf(mc, s[r]);
+        const float m0 = p.scal[kM];
+        const float m1 = fmaxf(m0, warp_max(mc));
+        float es = 0.f;
+        for (int r = lane; r < n; r += 32) {
+          const float v = expf(s[r] - m1);
+          e[r] = v;
+          es += v;
         }
-        // online softmax, one slot after another
-#pragma unroll
-        for (int s = 0; s < kSlots; ++s) {
-          if (s >= ns) break;
-          const float sv = warp_sum(part[s]);
-          const float m1 = fmaxf(m, sv);
-          const float corr = expf(m - m1), e = expf(sv - m1);
-          l = l * corr + e;
-          for (int o = 4 * lane; o < O; o += kGroup) {
-            const int n = min(4, O - o);
-            float a[4], x[4];
-            lds4(acc + o, n, vec, a);
-            lds4(xs + s * op + o, n, vec, x);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) a[i] = a[i] * corr + e * x[i];
-            sts4(acc + o, n, vec, a);
-          }
-          m = m1;
+        es = warp_sum(es);
+        if (lane == 0) {
+          const float corr = expf(m0 - m1);
+          p.scal[kCorr] = corr;
+          p.scal[kL] = p.scal[kL] * corr + es;
+          p.scal[kM] = m1;
         }
       }
+      __syncthreads();
+      // each part of the rows sums its share of every column, then the
+      // parts are added in order
+      const int parts = walk_parts(O);
+      for (int t = threadIdx.x; t < parts * O; t += blockDim.x) {
+        const int o = t % O;
+        int ra, rb;
+        row_split(n, parts, t / O, ra, rb);
+        float a = 0.f;
+#pragma unroll 4
+        for (int r = ra; r < rb; ++r)
+          a = __fmaf_rn(e[r], p.x[(size_t)r * xs + o], a);
+        part[(t / O) * op + o] = a;
+      }
+      __syncthreads();
+      const float corr = p.scal[kCorr];
+      for (int o = threadIdx.x; o < O; o += blockDim.x) {
+        float a = part[o];
+        for (int k = 1; k < parts; ++k) a = __fadd_rn(a, part[k * op + o]);
+        acc[o] = __fmaf_rn(acc[o], corr, a);
+      }
     }
-
-    const float inv = 1.f / fmaxf(l, 1e-16f);
-    for (int o = 4 * lane; o < O; o += kGroup) {
-      const int n = min(4, O - o);
-      float bv[4], r[4];
-      loadn(bias + o, n, vec, bv);
-      lds4(acc + o, n, vec, r);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) r[i] = r[i] * inv + bv[i];
-      storen(out + (size_t)b * O + o, n, vec, r);
-    }
-    if (lane == 0) {
-      m_out[b] = m;
+    __syncthreads();
+    const float l = p.scal[kL];
+    const float denom = fmaxf(l, 1e-16f);
+    for (int o = threadIdx.x; o < O; o += blockDim.x)
+      out[(size_t)b * O + o] = acc[o] / denom + bias[o];
+    if (threadIdx.x == 0) {
+      m_out[b] = p.scal[kM];
       l_out[b] = l;
     }
   }
@@ -156,23 +126,16 @@ int launch(const void* keys, const void* q, const void* valid,
            const void* w, const void* rbias, const void* att,
            const void* bias, void* out, void* m_out, void* l_out, int B,
            int C, int Dk, int O, cudaStream_t stream) {
-  if (Dk < 1 || O < 1) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t per_warp = sizeof(float) * fwd_slice(Dk, O);
-  const size_t cap = block_smem_cap(kBlocks);
-  const int warps = warps_that_fit(kWarps, 0, per_warp, cap);
-  if (warps < 1) return (int)cudaErrorInvalidValue;
-  const int staged = rows_that_fit(1, Dk, O, sizeof(T), warps * per_warp, cap);
-  const size_t smem = staged_bytes(1, staged, O, sizeof(T)) + warps * per_warp;
   auto kern = link_attention_fwd_kernel<T>;
-  int grid = 0, sms = 0;
-  cudaError_t err = persistent_grid(kern, warps * 32, smem, kBlocks,
-                                    (B + warps - 1) / warps, &grid, &sms);
+  LinkLaunch t;
+  cudaError_t err = link_launch(kern, B, C, Dk, O, (int)sizeof(T), &t);
   if (err != cudaSuccess) return (int)err;
-  kern<<<grid, warps * 32, smem, stream>>>(
+  kern<<<t.grid, kThreads, t.smem, stream>>>(
       (const T*)keys, (const float*)q, (const uint8_t*)valid, (const T*)w,
       (const float*)rbias, (const float*)att, (const float*)bias,
-      (float*)out, (float*)m_out, (float*)l_out, B, C, Dk, O, staged);
+      (float*)out, (float*)m_out, (float*)l_out, B, C, Dk, O, t.L.ts,
+      t.L.dc);
   return (int)cudaGetLastError();
 }
 

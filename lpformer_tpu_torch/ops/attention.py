@@ -10,7 +10,10 @@ For each link b over its valid context slots c:
 
 ``fused_link_attention`` is a ``torch.autograd.Function``. Its forward
 launches the hand-written CUDA kernel ``csrc/link_attention_fwd.cu`` on
-CUDA tensors (built with nvcc for sm_90a at first use, loaded with ctypes)
+CUDA tensors (built with nvcc for sm_90a at first use, loaded with ctypes;
+a block takes whole links, in chunks of up to 128 valid slots, with the
+products on tensor cores in bf16 and as exact f32 FMA tiles in f32:
+``csrc/link_attention_tiles.cuh``)
 and runs ``fused_link_attention_plain``, the same math in torch ops over
 [B, C], on CPU tensors. Its backward, from the saved m, l and out, is
 ``fused_link_attention_bwd``: the CUDA kernels
@@ -36,7 +39,8 @@ from lpformer_tpu_torch.ops.pe_attention_mixed import (
     attend, attend_backward, backward_cotangent,
 )
 
-_HEADERS = ("pe_attention_common.cuh", "link_attention_common.cuh")
+_HEADERS = ("pe_attention_common.cuh", "pe_attention_tiles.cuh",
+            "link_attention_tiles.cuh")
 _LIB = None
 _LIB_BWD = None
 

@@ -1,7 +1,10 @@
-"""The scatter-add and the fused lookup on the card, each against its
-yardsticks, in CUDA-event time and in traced device time.
+"""The scatter-add, the fused lookup and the per-link attention pair on
+the card, each against its yardsticks, in CUDA-event time and in traced
+device time.
 
-    python -m lpformer_tpu_torch.profile_kernels
+    python -m lpformer_tpu_torch.profile_kernels [--link]
+
+(``--link``: the per-link attention pair alone.)
 
 1. ``ops/scatter.py:scatter_rows_add`` on chip_smoke.py's main-path inputs
    (``measure.scatter_inputs``: [4096, 128] bf16 cotangent rows, ~8% live,
@@ -17,6 +20,14 @@ yardsticks, in CUDA-event time and in traced device time.
    row) and at ops/masking.py's one query a row: event time and traced
    kernel time, the bound, and the searchsorted route
    (``ops/search.py:row_member_values``) on the same rows and queries.
+3. ``ops/attention.py``'s per-link attention pair at the bench's A/B shape
+   (``measure.link_attention_inputs``: B 4096, C 128, Dk 256, O 128, 80%
+   valid) in f32 and bf16: the forward and backward wrappers' event and
+   traced times (the backward's main kernel, its dW kernel and the
+   zeroing of its summed outputs apart) beside their bounds, and the
+   bench's A/B arms, the op and the torch composition (``att_composition``,
+   a yardstick the port never calls), forward and forward + backward,
+   traced.
 
 Each result is first held to its plain version (the lookup bit for bit).
 The script calls only functions that earlier trees of the port have too,
@@ -26,6 +37,7 @@ kernels. Needs a CUDA card.
 from __future__ import annotations
 
 import os
+import sys
 
 import torch
 
@@ -38,6 +50,11 @@ from lpformer_tpu_torch.utils.measure import card_line, time_ms, trace_device
 # at most (k - 1) 2^-24 sum|terms| for k terms, and the hub rows here take
 # thousands, so max |err| is held to 1e-4 of the largest row abs-sum.
 SCATTER_TOL = 1e-4
+# Per-link attention kernels vs plain: the forward's max |err| on out, m
+# and l; the backward's max |err| / max |plain| per output. f32: summation
+# order only; bf16: a last-bit difference before a bf16 rounding (xj's
+# products in another order, dxj) flips it (2^-8 relative).
+LINK_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-2, 2e-2)}
 
 
 def traced_ms(fn, calls: int = 20, tries: int = 3):
@@ -142,6 +159,95 @@ def scatter_kernel_alone(card, label, ids, ct, n, live):
           f"in L2, {cold:.4f} after L2 was flushed  [{card}]")
 
 
+def att_composition(keys, q, valid, w, r_bias, att, bias):
+    """The other arm of the bench's attention A/B (bench.py:834-842): the
+    per-link attention as a composition of torch ops, which materialises
+    xj [B, C, O]. A yardstick only; the port never calls it."""
+    xj = torch.matmul(keys, w).float() + r_bias
+    z = torch.nn.functional.leaky_relu(xj * q[:, None, :], 0.2)
+    logits = (z * att.reshape(1, 1, -1)).sum(-1)
+    masked = torch.where(valid, logits, -1e30)
+    m = masked.amax(1, keepdim=True).clamp_min(-5e29)
+    ex = torch.exp(masked - m) * valid
+    alpha = ex / ex.sum(1, keepdim=True).clamp_min(1e-16)
+    return (alpha[..., None] * xj).sum(1) + bias
+
+
+def ab_arms(a):
+    """The A/B's forward and forward + backward (sum(out^2), grads of keys
+    and q, as bench.py:850-856) of the op and of the composition, on the
+    inputs ``a`` of ``link_attention_inputs``."""
+    from lpformer_tpu_torch.ops.attention import fused_link_attention
+
+    rest = (a["valid"], a["w"], a["r_bias"], a["att"], a["bias"])
+
+    def fwd(impl):
+        return lambda: impl(a["keys"], a["q"], *rest)
+
+    def fwd_bwd(impl):
+        def run():
+            k = a["keys"].detach().requires_grad_(True)
+            qq = a["q"].detach().requires_grad_(True)
+            out = impl(k, qq, *rest)
+            return (out,) + torch.autograd.grad((out ** 2).sum(), (k, qq))
+        return run
+
+    return {"op": (fwd(fused_link_attention), fwd_bwd(fused_link_attention)),
+            "composition": (fwd(att_composition), fwd_bwd(att_composition))}
+
+
+def link_attention_report(card, dev, dtype):
+    """The per-link attention pair (``ops/attention.py``) at the bench's
+    A/B shape (``measure.link_attention_inputs``) in ``dtype``: each
+    kernel held to its plain version, then the forward wrapper's and the
+    backward wrapper's event and traced times (the backward's main kernel,
+    its dW kernel and the output zeroing apart), their bounds, and the
+    A/B's two arms, the op and the torch composition, forward and forward
+    + backward, traced; print the lines."""
+    from lpformer_tpu_torch.ops import attention as at
+
+    a = measure.link_attention_inputs(dev, dtype)
+    tol_f, tol_b = LINK_TOL[dtype]
+    got, want = at._fwd(**a), at.fused_link_attention_plain(**a)
+    err = max(float((x - y).abs().max()) for x, y in zip(got, want))
+    b = measure.link_attention_bwd_inputs(a)
+    got_b = at.fused_link_attention_bwd(**b)
+    want_b = at.fused_link_attention_bwd_plain(**b)
+    berrs = {n: float((x.float() - y.float()).abs().max()
+                      / y.float().abs().max().clamp_min(1e-30))
+             for n, x, y in zip(("dkeys", "dq", "dw", "dr_bias", "datt"),
+                                got_b, want_b)}
+    berr = max(berrs.values())
+    if err > tol_f or berr > tol_b:
+        raise AssertionError(f"link attention {dtype}: forward max abs err "
+                             f"{err} (tol {tol_f}), backward max rel err "
+                             f"{berrs} (tol {tol_b})")
+    del got, want, got_b, want_b
+    label = str(dtype)[6:]
+    fwd_ms = time_ms(lambda: at._fwd(**a), 10, per=20)
+    fwd_tr, _ = traced_ms(lambda: at._fwd(**a))
+    bwd_ms = time_ms(lambda: at.fused_link_attention_bwd(**b), 10, per=10)
+    bwd_tr, rows = traced_ms(lambda: at.fused_link_attention_bwd(**b))
+    main_ms = sum(ms for ms, _, n in rows if "link_attention_bwd_kernel" in n)
+    dw_ms = sum(ms for ms, _, n in rows if "link_attention_dw_kernel" in n)
+    fb, fb_by, nv = measure.link_attention_bound_ms(a)
+    bb, bb_by, _ = measure.link_attention_bwd_bound_ms(b)
+    print(f"link attention {label} (B={a['keys'].shape[0]} "
+          f"C={a['keys'].shape[1]} Dk={a['keys'].shape[2]} "
+          f"O={a['w'].shape[1]}, {nv} valid slots): forward max abs err "
+          f"{err:.3e}, backward max rel err {berr:.3e}; forward event "
+          f"{fwd_ms:.4f} ms, traced {fwd_tr:.4f}, bound {fb:.5f} ({fb_by}); "
+          f"backward event {bwd_ms:.4f} ms, traced {bwd_tr:.4f} = main "
+          f"{main_ms:.4f} + dW {dw_ms:.4f} + zeroing "
+          f"{bwd_tr - main_ms - dw_ms:.4f}, bound {bb:.5f} ({bb_by})  "
+          f"[{card}]")
+    for arm, (fwd, fwd_bwd) in ab_arms(a).items():
+        f_tr, _ = traced_ms(fwd, calls=10)
+        fb_tr, _ = traced_ms(fwd_bwd, calls=10)
+        print(f"  A/B {label} {arm}: forward traced {f_tr:.4f} ms, forward "
+              f"+ backward traced {fb_tr:.4f} ms")
+
+
 def lookup_inputs(dev, b=4096, k=256, q=256, n_l=2, n=50_000, seed=0):
     """Rows of sorted real ids below n, a random count of them per row and
     the pad id n after; queries half from their row, half uniform over
@@ -187,9 +293,14 @@ def lookup_report(card, label, rows, queries, lanes, vals):
           f"{route_busy:.4f}; bound {bound:.5f} ms ({bound_by})  [{card}]")
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    args = sys.argv[1:] if argv is None else argv
     dev = resolve_device()
     card = card_line()
+    if "--link" in args:        # the per-link attention pair alone
+        for dtype in (torch.float32, torch.bfloat16):
+            link_attention_report(card, dev, dtype)
+        return
     os.environ.pop("LPFORMER_FUSED_LOOKUP", None)   # the search route below
     ids, ct, n, live = measure.scatter_inputs(dev)
     draws = (("rank^-0.8 ids", ids), ("uniform ids", uniform_ids(ids, n, live)))
@@ -201,6 +312,8 @@ def main() -> None:
     lookup_report(card, "main", rows, queries, lanes, vals)
     lookup_report(card, "one query a row", rows, queries[:, :1].contiguous(),
                   lanes, vals)
+    for dtype in (torch.float32, torch.bfloat16):
+        link_attention_report(card, dev, dtype)
 
 
 if __name__ == "__main__":

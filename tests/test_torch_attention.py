@@ -35,6 +35,12 @@ DIFF = ("keys", "q", "w_r", "r_bias", "att", "bias")
 # (C, Dk, O): one tile; C not a multiple of 128; widths of no power of two
 SHAPES = [(20, 24, 16), (150, 24, 16), (37, 20, 12)]
 B = 6
+# the card's further shapes: the A/B's widths; several chunks of 64 valid
+# slots a link; the dim-256 widths, where W_r does not fit in shared
+# memory beside a block's chunk in f32; key rows of 40 bytes in bf16 (not
+# 16-byte aligned)
+CARD_SHAPES = [(128, 256, 128), (300, 256, 128), (128, 512, 256),
+               (128, 20, 12)]
 TOL = {False: dict(rtol=1e-4, atol=1e-5), True: dict(rtol=2e-2, atol=2e-3)}
 
 
@@ -169,7 +175,7 @@ def test_kernel_input_checks(name, bad, err):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("c,dk,o", SHAPES + [(128, 256, 128)])
+@pytest.mark.parametrize("c,dk,o", SHAPES + CARD_SHAPES)
 def test_kernels_match_plain_on_card(c, dk, o, bf16):
     """Forward and backward kernels against their plain versions on the
     card (``assert_close_card``: max |err| within rtol of each output's
@@ -198,3 +204,48 @@ def test_kernels_match_plain_on_card(c, dk, o, bf16):
     for x, y in zip(got + got_b, want + want_b):
         assert x.dtype == y.dtype
         assert_close_card(x, y, TOL[bf16]["rtol"])
+
+
+def _card_args(c, dk, o, bf16, seed=7):
+    a = _inputs(c, dk, o, seed=seed)
+    t = {n: torch.as_tensor(v).cuda() for n, v in a.items()}
+    kdt = torch.bfloat16 if bf16 else torch.float32
+    return a, (t["keys"].to(kdt), t["q"], t["valid"], t["w_r"].to(kdt),
+               t["r_bias"], t["att"], t["bias"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_dead_slots_dkeys_are_zero_on_card(bf16):
+    """The backward kernel writes every dead slot's dkeys row itself, as
+    exact zeros, into an output it never clears (torch.empty): fill the
+    caching allocator's blocks with NaN first, so a row left unwritten
+    shows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    a, args = _card_args(300, 256, 128, bf16)
+    torch.full((8 << 20,), float("nan"), device="cuda")   # freed: dirty
+    out, m, l = tatt.fused_link_attention_plain(*args)
+    g_out = torch.as_tensor(_cot(a, 7)).cuda()
+    delta = (g_out * (out - args[6])).sum(-1)
+    dkeys = tatt.fused_link_attention_bwd(*args[:6], m, l, g_out, delta)[0]
+    torch.cuda.synchronize()
+    dead = ~args[2]
+    assert dead.any()
+    assert torch.equal(dkeys[dead], torch.zeros_like(dkeys[dead]))
+    assert bool(torch.isfinite(dkeys[~dead].float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True])
+def test_forward_is_deterministic_on_card(bf16):
+    """A block takes whole links and writes out, m and l once with no
+    atomics: two calls give the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    _, args = _card_args(300, 256, 128, bf16)
+    first = tatt._fwd(*args)
+    second = tatt._fwd(*args)
+    torch.cuda.synchronize()
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
