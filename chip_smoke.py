@@ -54,6 +54,27 @@ and, on the collab-like combined table with LPFORMER_FUSED_LOOKUP=1:
 and the per-link attention op's own path:
   7. the bench's attention A/B (forward, and forward + backward) through
      fused_link_attention in f32 and bf16, with launches counted;
+  8. HeaRT: the collab-like dataset with 100 negatives per eval positive,
+     run_eval -> test_standard(heart=True) on the combined table: the
+     per-positive MRR in [0, 1], the forward kernel's launches equal to
+     the score batches;
+  9. the citation2-like preset (presets.py: 1,000,000 nodes, 5,000,000
+     train edges, dim 64, batch 32768, the combined table of 96; 1000
+     negative targets per eval positive, measure.citation2_like_dataset):
+     the host build, whose propagation layout must be the BlockedBELL of
+     kb = 8 (slots and the bundle's device memory printed); one GCN
+     layer's SpMM at [1M, 64], f32 and bf16 gather, through spmm_bbell
+     against a single BucketedELL and a static BlockedCOO of the same
+     graph (errors and times: an A/B, the layout rule stays the JAX
+     package's); rows 1-2 (bf16, B=32768, C=96, O=dh=64, K=3, drawn with
+     measure.citation2_link_counts) and row 3 (into 1,000,001 rows, its
+     zeroing apart, beside index_add_) against their plain versions; one
+     training step through the kernels against the plain path, then 8
+     steps with the default dropouts (losses finite, rows 1-3 launched
+     once per call, stage times, peak memory); run_eval -> test_citation2
+     at batch 32768 (every score finite, MRR in [0, 1], the forward
+     kernel's launches equal to the score batches, one batch of the sweep
+     against the plain path, propagate ms, links/s);
 then a "kernels:" summary line and a JSON line of per-kernel numbers (each
 kernel's launches from its path's run: rows 1-3 the collab-like combined
 train_loop, rows 4-5 the classic one, rows 6-7 phase 7, row 8 phase 6),
@@ -107,6 +128,10 @@ BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-3)}
 # att_layers/0/lin_l/w (the weight that makes q), to 5e-3 at the ddi-like
 # preset.
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-3, 2e-2
+# The citation2-like SpMM layouts against the single BucketedELL, max abs
+# error: every arm sums the same products in f32 (after the same bf16
+# rounding of x with bf16 gather), in other orders; outputs are O(1)
+SPMM_TOL = 1e-4
 # The per-link attention op vs the A/B's torch composition, f32 (summation
 # order only), on out and the keys' and q's grads: max |err| / max |ref|.
 AB_TOL = 1e-4
@@ -220,52 +245,59 @@ def _shape(a):
     return f"B={b} C={c} O={o} dh={a['w1'].shape[-1]}"
 
 
+def _fwd_check(layout, t, a, dtype, shape, reps):
+    """One forward check of a layout's kernel against its plain version
+    on the inputs ``a`` (the wrapper's call under
+    ``set_sync_debug_mode("error")``), timed by ``reps`` = (repeats,
+    back-to-back calls); logs one line and returns (max abs err, kernel
+    ms, plain ms, bound ms, bound_by)."""
+    torch.cuda.synchronize()
+    # the wrapper and its slot compaction must never wait on the card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = t["op"](**a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    want = in_link_chunks(t["plain"], a, 3)
+    errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
+    mean_err = float((got[0] - want[0]).abs().mean())
+    rel_l = float(((got[2] - want[2]).abs()
+                   / want[2].abs().clamp_min(1.0)).max())
+    tol, tol_mean = TOL[dtype]
+    ok_ = (errs[0] <= tol and errs[1] <= tol and rel_l <= tol
+           and mean_err <= tol_mean and bool(torch.isfinite(got[0]).all()))
+    del got, want
+    ms = time_ms(lambda: t["op"](**a), reps[0], per=reps[1])
+    plain_ms = time_ms(lambda: in_link_chunks(t["plain"], a, 3), 3, 1)
+    bound, bound_by, nv = t["bound"](a)
+    log(f"kernel {layout} {str(dtype)[6:]} {shape} ({_shape(a)}): "
+        f"max|out| err {errs[0]:.3e} (mean {mean_err:.3e}), max|m| err "
+        f"{errs[1]:.3e}, max rel l err {rel_l:.3e} (tol {tol}, mean "
+        f"{tol_mean}); {nv} valid slots of {a['valid'].numel()}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound:.5f} ms "
+        f"({bound_by})")
+    if not ok_:
+        raise AssertionError(f"{layout} kernel disagrees with plain in "
+                             f"{dtype} at {shape}")
+    return max(errs[0], errs[1]), ms, plain_ms, bound, bound_by
+
+
 def phase_kernel(dev, layout, t):
     """A layout's forward kernel vs plain at its main-path shape and its
-    wider shapes; returns the JSON entry (main shape, bf16)."""
+    wider shapes; returns the JSON entry (main shape, bf16). 20
+    back-to-back launches per timing at the main shape, so the wrapper's
+    host overhead overlaps the previous launch's device work (fewer at
+    the wider shapes, whose launches are long)."""
     entry = None
     t["module"]._load()
     for dtype, shape, kw in _runs(t):
         a = t["inputs"](dev, dtype, **kw)
-        torch.cuda.synchronize()
-        # the wrapper and its slot compaction must never wait on the card
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            got = t["op"](**a)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        want = in_link_chunks(t["plain"], a, 3)
-        errs = [float((x - y).abs().max()) for x, y in zip(got, want)]
-        mean_err = float((got[0] - want[0]).abs().mean())
-        rel_l = float(((got[2] - want[2]).abs()
-                       / want[2].abs().clamp_min(1.0)).max())
-        tol, tol_mean = TOL[dtype]
-        ok_ = (errs[0] <= tol and errs[1] <= tol and rel_l <= tol
-               and mean_err <= tol_mean
-               and bool(torch.isfinite(got[0]).all()))
-        # 20 back-to-back launches per timing, so the wrapper's host
-        # overhead overlaps the previous launch's device work (fewer at the
-        # wider shapes, whose launches are long)
-        ms = (time_ms(lambda: t["op"](**a), 10, per=20) if shape == "main"
-              else time_ms(lambda: t["op"](**a), 3, per=2))
-        plain_ms = (time_ms(lambda: t["plain"](**a), 5, 1)
-                    if shape == "main" else None)
-        bound, bound_by, nv = t["bound"](a)
-        log(f"kernel {layout} {str(dtype)[6:]} {shape} ({_shape(a)}): "
-            f"max|out| err {errs[0]:.3e} (mean {mean_err:.3e}), max|m| err "
-            f"{errs[1]:.3e}, max rel l err {rel_l:.3e} (tol {tol}, mean "
-            f"{tol_mean}); {nv} valid slots of {a['valid'].numel()}; kernel "
-            f"{ms:.4f} ms, plain "
-            + ("not timed" if plain_ms is None else f"{plain_ms:.4f} ms")
-            + f", bound {bound:.5f} ms ({bound_by})")
-        if not ok_:
-            raise AssertionError(f"{layout} kernel disagrees with plain in "
-                                 f"{dtype} at {shape}")
+        r = _fwd_check(layout, t, a, dtype, shape,
+                       (10, 20) if shape == "main" else (3, 2))
         if dtype == torch.bfloat16 and shape == "main":
-            entry = _entry(t["fwd_entry"], max(errs[0], errs[1]), ms,
-                           plain_ms, bound, bound_by)
-        del a, got, want
+            entry = _entry(t["fwd_entry"], *r)
+        del a
     return entry
 
 
@@ -296,38 +328,47 @@ def _bwd_check(label, names, got, want, dtype, keys_dtype):
     return text, max_abs
 
 
+BWD_NAMES = ("dkeys", "dq", "dw1cat", "dg", "db", "dw2", "dcb", "datt")
+
+
+def _bwd_check_timed(layout, t, a, dtype, shape, reps):
+    """One backward check of a layout's kernels against their plain
+    version on the backward inputs ``a`` (``bwd_inputs``), the wrapper's
+    call under ``set_sync_debug_mode("error")``; logs one line and
+    returns (max abs err, kernel ms, plain ms, bound ms, bound_by)."""
+    torch.cuda.synchronize()
+    # the wrapper and its slot compaction must never wait on the card
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = t["bwd"](**a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    want = in_link_chunks(t["bwd_plain"], a, 2)
+    text, max_abs = _bwd_check(f"{layout} backward kernel at {shape}",
+                               BWD_NAMES, got, want, dtype, a["keys"].dtype)
+    del got, want
+    ms = time_ms(lambda: t["bwd"](**a), reps[0], per=reps[1])
+    plain_ms = time_ms(lambda: in_link_chunks(t["bwd_plain"], a, 2), 3, 1)
+    bound, bound_by, nv = t["bwd_bound"](a)
+    log(f"kernel bwd {layout} {str(dtype)[6:]} {shape} ({_shape(a)}): "
+        f"{text}; {nv} valid slots; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
+    return max_abs, ms, plain_ms, bound, bound_by
+
+
 def phase_kernel_bwd(dev, layout, t):
     """A layout's PE+attention backward kernels vs their plain version at
     its main-path shape and its wider shapes; returns the JSON entry."""
-    names = ("dkeys", "dq", "dw1cat", "dg", "db", "dw2", "dcb", "datt")
     entry = None
     t["module"]._load_bwd()
     for dtype, shape, kw in _runs(t):
         a = bwd_inputs(t["inputs"](dev, dtype, **kw))
-        torch.cuda.synchronize()
-        # the wrapper and its slot compaction must never wait on the card
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            got = t["bwd"](**a)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize()
-        want = in_link_chunks(t["bwd_plain"], a, 2)
-        text, max_abs = _bwd_check(f"{layout} backward kernel at {shape}",
-                                   names, got, want, dtype, a["keys"].dtype)
-        ms = (time_ms(lambda: t["bwd"](**a), 10, per=10) if shape == "main"
-              else time_ms(lambda: t["bwd"](**a), 3, per=2))
-        plain_ms = (time_ms(lambda: t["bwd_plain"](**a), 3, 1)
-                    if shape == "main" else None)
-        bound, bound_by, nv = t["bwd_bound"](a)
-        log(f"kernel bwd {layout} {str(dtype)[6:]} {shape} ({_shape(a)}): "
-            f"{text}; {nv} valid slots; kernel {ms:.4f} ms, plain "
-            + ("not timed" if plain_ms is None else f"{plain_ms:.4f} ms")
-            + f", bound {bound:.5f} ms ({bound_by})")
+        r = _bwd_check_timed(layout, t, a, dtype, shape,
+                             (10, 10) if shape == "main" else (3, 2))
         if dtype == torch.bfloat16 and shape == "main":
-            entry = _entry(t["bwd_entry"], max_abs, ms, plain_ms, bound,
-                           bound_by)
-        del a, got, want
+            entry = _entry(t["bwd_entry"], *r)
+        del a
     return entry
 
 
@@ -715,23 +756,9 @@ def phase_main(dev, card, ds, layout, t, cfg=None, batch=None):
                                  "shape")
 
         # one full batch of real eval links: scores, kernel vs plain path
-        links = links[:batch]
-        tl = torch.as_tensor(links, dtype=torch.int64, device=dev)
-        src, tgt = tl[:, 0], tl[:, 1]
-        scores = score_fn(params, ds.graph, X, src, tgt)
-        if scores.shape != (len(links),) or not torch.isfinite(scores).all():
-            raise AssertionError("scores not finite or of the wrong shape")
+        src, tgt = _scores_vs_plain(dev, ds.graph, t, score_fn, params, X,
+                                    links[:batch], layout)
         orig = getattr(lt, t["model_op"])
-        setattr(lt, t["model_op"], t["plain"])
-        try:
-            plain = score_fn(params, ds.graph, X, src, tgt)
-        finally:
-            setattr(lt, t["model_op"], orig)
-        err = float((scores - plain).abs().max())
-        log(f"scores {layout} kernel vs plain path: max abs err {err:.3e} "
-            f"(tol {SCORE_TOL})")
-        if err > SCORE_TOL:
-            raise AssertionError("kernel path disagrees with the plain path")
 
         # where one batch's time goes, each stage timed on its own
         captured = []
@@ -772,6 +799,31 @@ def phase_main(dev, card, ds, layout, t, cfg=None, batch=None):
     return launches
 
 
+def _scores_vs_plain(dev, graph, t, score_fn, params, X, links, label):
+    """One batch of links scored through the layout's kernel and through
+    its plain version: finite, of the right shape, within SCORE_TOL.
+    Returns the batch's (src, tgt) on the card."""
+    from lpformer_tpu_torch.models import link_transformer as lt
+
+    tl = torch.as_tensor(links, dtype=torch.int64, device=dev)
+    src, tgt = tl[:, 0], tl[:, 1]
+    scores = score_fn(params, graph, X, src, tgt)
+    if scores.shape != (len(links),) or not torch.isfinite(scores).all():
+        raise AssertionError("scores not finite or of the wrong shape")
+    orig = getattr(lt, t["model_op"])
+    setattr(lt, t["model_op"], t["plain"])
+    try:
+        plain = score_fn(params, graph, X, src, tgt)
+    finally:
+        setattr(lt, t["model_op"], orig)
+    err = float((scores - plain).abs().max())
+    log(f"scores {label} kernel vs plain path ({len(links)} links): max abs "
+        f"err {err:.3e} (tol {SCORE_TOL})")
+    if err > SCORE_TOL:
+        raise AssertionError("kernel path disagrees with the plain path")
+    return src, tgt
+
+
 def _plain_training_path(tabs):
     """Route the model's fused ops and the gathers' scatter through their
     plain versions (autograd included), for comparison on the card;
@@ -807,40 +859,34 @@ def _counters(tabs):
     return out
 
 
-def phase_train(dev, card, ds, layout, tabs, cfg=None, batch=None, epochs=1,
-                timed_steps=5):
-    """The training path at a preset of a table layout; returns each
-    kernel's launch count in the train_loop run."""
-    from lpformer_tpu_torch import presets
+def _fresh_params(dev, cfg, in_dim):
     from lpformer_tpu_torch.models import link_transformer as lt
+    from lpformer_tpu_torch.train import optim
+
+    p = lt.init_lpformer(torch.Generator().manual_seed(0), cfg, in_dim=in_dim,
+                         device=dev)
+    for x in optim.tree_leaves(p):
+        x.requires_grad_(True)
+    return p
+
+
+def _step_pair(dev, ds, layout, tabs, cfg, batch):
+    """One training step, dropout off and fixed negatives, through the
+    kernels and through the plain versions: the loss and every gradient
+    leaf must agree (STEP_LOSS_TOL, STEP_GRAD_TOL)."""
     from lpformer_tpu_torch.ops import masking
-    from lpformer_tpu_torch.train import optim, step as step_mod, trainer
-    from lpformer_tpu_torch.utils.logger import ResultsLogger
+    from lpformer_tpu_torch.train import optim, step as step_mod
 
-    t = tabs[layout]
-    cfg = cfg or t["cfg"]
-    batch = batch or presets.COLLAB_LIKE_BATCH
-    in_dim = int(ds.graph.x.shape[1])
-    mult = ds.mask_mult_device
-
-    def fresh_params(c):
-        p = lt.init_lpformer(torch.Generator().manual_seed(0), c,
-                             in_dim=in_dim, device=dev)
-        for x in optim.tree_leaves(p):
-            x.requires_grad_(True)
-        return p
-
-    # (a) one step, dropout off, fixed negatives: kernels vs plain versions
     nodrop = dataclasses.replace(cfg, dropout=0.0, gnn_drop=0.0,
                                  att_drop=0.0)
-    params = fresh_params(nodrop)
+    params = _fresh_params(dev, nodrop, int(ds.graph.x.shape[1]))
     leaves = optim.tree_leaves(params)
     pos = torch.as_tensor(ds.train_pos[:batch]).to(dev)
     neg = torch.randint(0, ds.num_nodes, (2, batch),
                         generator=torch.Generator().manual_seed(1)).to(dev)
     w = torch.ones(batch, device=dev)
     mr = masking.batch_mask_ranks(ds.graph.adj_rows, pos[:, 0], pos[:, 1],
-                                  mult, weight=w)
+                                  ds.mask_mult_device, weight=w)
 
     def loss_and_grads():
         loss = step_mod.loss_fn(params, nodrop, ds.graph, pos[:, 0],
@@ -859,17 +905,86 @@ def phase_train(dev, card, ds, layout, tabs, cfg=None, batch=None, epochs=1,
     worst = [p for p, _ in optim.tree_leaves_with_path(params)][
         rel.index(max(rel))]
     finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
-    log(f"train step {layout} (dim {cfg.dim}) kernels vs plain: loss "
-        f"{float(loss_k):.6f} vs {float(loss_p):.6f} (|diff| {dl:.2e}, tol "
-        f"{STEP_LOSS_TOL}); grad leaves {len(rel)}, max rel L2 err "
-        f"{max(rel):.2e} at {'/'.join(map(str, worst))} (median "
+    log(f"train step {layout} (dim {cfg.dim}, batch {batch}) kernels vs "
+        f"plain: loss {float(loss_k):.6f} vs {float(loss_p):.6f} (|diff| "
+        f"{dl:.2e}, tol {STEP_LOSS_TOL}); grad leaves {len(rel)}, max rel L2 "
+        f"err {max(rel):.2e} at {'/'.join(map(str, worst))} (median "
         f"{statistics.median(rel):.2e}, tol {STEP_GRAD_TOL})")
     if dl > STEP_LOSS_TOL or max(rel) > STEP_GRAD_TOL or not finite:
         raise AssertionError("training step through the kernels disagrees "
                              "with the plain path")
-    del params, leaves, grads_k, grads_p
 
-    # (b) the main path: train_loop, one test_standard at its end
+
+def _timed_steps(dev, card, ds, layout, cfg, batch, steps, skip=2):
+    """``steps`` training steps with the default dropouts through the
+    functions train_loop's step runs (masking, loss_fn, backward, the
+    fused optimizer), CUDA events around the forward, backward and
+    optimizer; logs the medians over the steps after the first ``skip``
+    and the peak memory, and returns every step's loss."""
+    from lpformer_tpu_torch.ops import masking
+    from lpformer_tpu_torch.train import optim, step as step_mod
+
+    params = _fresh_params(dev, cfg, int(ds.graph.x.shape[1]))
+    opt = optim.make_optimizer(1e-3, steps_per_epoch=steps)
+    opt_state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = torch.ones(batch, device=dev)
+    mult = ds.mask_mult_device
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(steps):
+        links = torch.as_tensor(
+            ds.train_pos[i * batch:(i + 1) * batch]).to(dev)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        negs = torch.randint(0, ds.num_nodes, (2, batch), generator=gen,
+                             device=dev, dtype=links.dtype)
+        mr = masking.batch_mask_ranks(ds.graph.adj_rows, links[:, 0],
+                                      links[:, 1], mult, weight=w)
+        loss = step_mod.loss_fn(params, cfg, ds.graph, links[:, 0],
+                                links[:, 1], negs[0], negs[1], w, mr, gen)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        grads = optim.tree_map(
+            lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
+            params)
+        upd, opt_state = opt.update(grads, opt_state, params)
+        optim.apply_updates(params, upd)
+        for p in optim.tree_leaves(params):
+            p.grad = None
+        ev[3].record()
+        ev[3].synchronize()
+        losses.append(loss.detach())
+        if i >= skip:
+            times.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+    fwd, bwd, upd_ms = (statistics.median(x[j] for x in times)
+                        for j in range(3))
+    total = statistics.median(sum(x) for x in times)
+    log(f"train step {layout} (dim {cfg.dim}; median of {len(times)}, "
+        f"batch {batch}): {total:.3f} ms = forward {fwd:.3f} + backward "
+        f"{bwd:.3f} + optimizer {upd_ms:.3f}; {batch / total * 1e3:.0f} "
+        f"positive links/s; peak memory of the steps "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    return losses
+
+
+def phase_train(dev, card, ds, layout, tabs, cfg=None, batch=None, epochs=1,
+                timed_steps=5):
+    """The training path at a preset of a table layout: one step through
+    the kernels against the plain path, one epoch of train_loop with its
+    test_standard, then the timed steps; returns each kernel's launch
+    count in the train_loop run."""
+    from lpformer_tpu_torch import presets
+    from lpformer_tpu_torch.train import trainer
+    from lpformer_tpu_torch.utils.logger import ResultsLogger
+
+    t = tabs[layout]
+    cfg = cfg or t["cfg"]
+    batch = batch or presets.COLLAB_LIKE_BATCH
+    _step_pair(dev, ds, layout, tabs, cfg, batch)
+
+    # the main path: train_loop, one test_standard at its end
     args = trainer.TrainArgs(epochs=epochs, batch_size=batch,
                              test_batch_size=batch, eval_steps=epochs,
                              seed=0)
@@ -908,47 +1023,261 @@ def phase_train(dev, card, ds, layout, tabs, cfg=None, batch=None, epochs=1,
         if not all(0.0 <= x <= 1.0 for x in v):
             raise AssertionError(f"{k} out of range: {v}")
 
-    # (c) where a step's time goes: CUDA events around its three stages
-    params = fresh_params(cfg)
-    opt = optim.make_optimizer(1e-3, steps_per_epoch=steps)
-    opt_state = opt.init(params)
-    gen = torch.Generator(device=dev).manual_seed(0)
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for i in range(timed_steps + 2):
-        links = torch.as_tensor(
-            ds.train_pos[i * batch:(i + 1) * batch]).to(dev)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        ev[0].record()
-        negs = torch.randint(0, ds.num_nodes, (2, batch), generator=gen,
-                             device=dev, dtype=links.dtype)
-        mr = masking.batch_mask_ranks(ds.graph.adj_rows, links[:, 0],
-                                      links[:, 1], mult, weight=w)
-        loss = step_mod.loss_fn(params, cfg, ds.graph, links[:, 0],
-                                links[:, 1], negs[0], negs[1], w, mr, gen)
-        ev[1].record()
-        loss.backward()
-        ev[2].record()
-        grads = optim.tree_map(
-            lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
-            params)
-        upd, opt_state = opt.update(grads, opt_state, params)
-        optim.apply_updates(params, upd)
-        for p in optim.tree_leaves(params):
-            p.grad = None
-        ev[3].record()
-        ev[3].synchronize()
-        if i >= 2:
-            times.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
-    fwd, bwd, upd_ms = (statistics.median(x[j] for x in times)
-                        for j in range(3))
-    total = statistics.median(sum(x) for x in times)
-    log(f"train step {layout} (dim {cfg.dim}; median of {timed_steps}, "
-        f"batch {batch}): {total:.3f} ms = forward {fwd:.3f} + backward "
-        f"{bwd:.3f} + optimizer {upd_ms:.3f}; {batch / total * 1e3:.0f} "
-        f"positive links/s; peak memory of the timed steps "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    _timed_steps(dev, card, ds, layout, cfg, batch, timed_steps + 2)
     return launches
+
+
+def phase_heart(dev, card, tabs):
+    """The HeaRT sweep: the collab-like dataset with 100 negatives per
+    eval positive (a choice of this script; no HeaRT file fixes it), on
+    the combined table, through run_eval -> test_standard(heart=True):
+    the per-positive MRR in [0, 1] and the forward kernel's launches equal
+    to the score batches."""
+    from lpformer_tpu_torch import presets
+    from lpformer_tpu_torch.models import link_transformer as lt
+    from lpformer_tpu_torch.train import trainer
+
+    ds = load_dataset(dev, dict(presets.COLLAB_LIKE_DATA, heart=True,
+                                heart_negs=100))
+    t, batch = tabs["combined"], presets.COLLAB_LIKE_BATCH
+    cfg = t["cfg"]
+    params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
+                              in_dim=int(ds.graph.x.shape[1]), device=dev)
+    sizes = [len(ds.train_pos_val), len(ds.valid_pos), len(ds.test_pos),
+             ds.valid_neg.shape[0] * ds.valid_neg.shape[1],
+             ds.test_neg.shape[0] * ds.test_neg.shape[1]]
+    n_batches = sum(-(-m // batch) for m in sizes)
+    t["op"].launches = 0
+    t0 = time.perf_counter()
+    res = trainer.run_eval(params, cfg, ds,
+                           trainer.TrainArgs(test_batch_size=batch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = t["op"].launches
+    log(f"HeaRT sweep (collab-like combined, {ds.valid_neg.shape[1]} "
+        f"negatives per positive): run_eval -> test_standard(heart=True) "
+        f"{wall * 1e3:.1f} ms wall, {sum(sizes)} links in {n_batches} "
+        f"batches, {launches} forward kernel launches; "
+        + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}/{v[2]:.4f}"
+                    for k, v in res.items()) + f" (train/valid/test)  [{card}]")
+    if list(res) != ["MRR"] or not all(0.0 <= x <= 1.0 for x in res["MRR"]):
+        raise AssertionError(f"HeaRT metrics out of range: {res}")
+    if launches != n_batches * cfg.trans_layers:
+        raise AssertionError(f"{launches} launches for {n_batches} batches")
+
+
+def _device_bytes(obj):
+    """Bytes of every tensor a (nested) dataclass holds."""
+    if isinstance(obj, torch.Tensor):
+        return obj.numel() * obj.element_size()
+    if dataclasses.is_dataclass(obj):
+        return sum(_device_bytes(getattr(obj, f.name))
+                   for f in dataclasses.fields(obj))
+    if isinstance(obj, (tuple, list)):
+        return sum(_device_bytes(x) for x in obj)
+    return 0
+
+
+def phase_citation2_build(dev):
+    """The citation2-like preset's dataset (measure.citation2_like_dataset:
+    1,000,000 nodes, 5,000,000 train edges, 1000 negative targets per eval
+    positive): its propagation layout must be the BlockedBELL of 8 x 8
+    tiles, and no ELL."""
+    t0 = time.perf_counter()
+    ds = measure.citation2_like_dataset(dev)
+    g = ds.graph
+    log(f"citation2-like dataset: {time.perf_counter() - t0:.1f} s host "
+        f"build ({ds.num_nodes} nodes, {g.num_edges} directed edges); "
+        f"layout {'bbell' if g.bbell is not None else 'none'} kb "
+        f"{None if g.bbell is None else g.bbell.kb}, "
+        f"{None if g.bbell is None else g.bbell.slot_total} slots in "
+        f"{0 if g.bbell is None else sum(x is not None for x in g.bbell.tiles)}"
+        f" tiles, ell {g.ell is not None}, blk {g.blk is not None}; the "
+        f"bundle holds {_device_bytes(g) / 2**30:.2f} GiB on the card")
+    if g.bbell is None or g.bbell.kb != 8 or g.ell is not None:
+        raise AssertionError("the citation2-like bundle must carry the "
+                             "BlockedBELL with kb = 8 and no ELL")
+    return ds
+
+
+def phase_citation2_spmm(dev, card, ds, dim):
+    """One GCN layer's SpMM on the citation2-like graph at [N, dim], f32
+    and with bf16 gather, through spmm_bbell, against a single BucketedELL
+    and a static BlockedCOO built over the same graph for this check only
+    (an A/B of the layouts; the layout rule stays the JAX package's)."""
+    from lpformer_tpu_torch.graph.containers import BlockedCOO, BucketedELL
+    from lpformer_tpu_torch.ops import spmm
+
+    g = ds.graph
+    s, d, w = (g.edge_src.cpu().numpy(), g.edge_dst.cpu().numpy(),
+               g.w_norm.cpu().numpy())
+    t0 = time.perf_counter()
+    bell = BucketedELL.from_sorted_coo(s, d, g.num_nodes, w_norm=w).to(dev)
+    blk = BlockedCOO.from_coo(s, d, g.num_nodes, w_norm=w,
+                              with_edge_ids=False).to(dev)
+    log(f"SpMM A/B layouts built in {time.perf_counter() - t0:.1f} s: "
+        f"BucketedELL {len(bell.caps)} tiers {bell.slot_total} slots, "
+        f"BlockedCOO {blk.slot_total} slots, BlockedBELL "
+        f"{g.bbell.slot_total} slots")
+    x = torch.randn(g.num_nodes, dim, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(0))
+    for gd in (None, torch.bfloat16):
+        arms = {
+            "BlockedBELL": lambda: spmm.spmm_bbell(g.bbell, x, diag=g.w_diag,
+                                                   gather_dtype=gd),
+            "BucketedELL": lambda: spmm.spmm_bell(bell, x, diag=g.w_diag,
+                                                  gather_dtype=gd),
+            "BlockedCOO": lambda: spmm.spmm_blocked(
+                blk, None, x, diag=g.w_diag, gather_dtype=gd),
+        }
+        with torch.no_grad():
+            outs = {k: f() for k, f in arms.items()}
+            ref = outs["BucketedELL"]
+            errs = {k: float((v - ref).abs().max()) for k, v in outs.items()
+                    if k != "BucketedELL"}
+            ms = {k: time_ms(f, 3, 1) for k, f in arms.items()}
+        log(f"SpMM [{g.num_nodes}, {dim}] {'f32' if gd is None else 'bf16'}"
+            f" gather: max abs err vs BucketedELL " + ", ".join(
+                f"{k} {e:.3e}" for k, e in errs.items())
+            + f" (tol {SPMM_TOL}); " + ", ".join(
+                f"{k} {v:.3f} ms" for k, v in ms.items()) + f"  [{card}]")
+        if max(errs.values()) > SPMM_TOL or not all(
+                bool(torch.isfinite(v).all()) for v in outs.values()):
+            raise AssertionError("the SpMM layouts disagree")
+        del outs, ref
+    del bell, blk, x
+    torch.cuda.empty_cache()
+
+
+def phase_citation2_kernels(dev, card, tabs, cfg, batch, n_rows):
+    """Rows 1-3 at the citation2-like widths (combined table, bf16, B =
+    batch, C = the combined budget, O = dh = dim, K = 3), drawn with the
+    preset's valid-slot counts (measure.citation2_link_counts): the
+    forward and backward against their plain versions (TOL, BWD_TOL), and
+    the scatter over [B, C, dim] into ``n_rows`` rows beside index_add_."""
+    from lpformer_tpu_torch.ops import scatter
+    from lpformer_tpu_torch.profile_kernels import scatter_report
+
+    t = tabs["combined"]
+    kw = dict(b=batch, c=cfg.budget_combined, o=cfg.dim, dh=cfg.dim,
+              counts=measure.citation2_link_counts)
+    a = t["inputs"](dev, torch.bfloat16, **kw)
+    _fwd_check("combined", t, a, torch.bfloat16, "citation2-like", (5, 5))
+    a = bwd_inputs(a)
+    _bwd_check_timed("combined", t, a, torch.bfloat16, "citation2-like",
+                     (5, 5))
+    del a
+    ids, ct, n, live = scatter_inputs(dev, b=batch, c=cfg.budget_combined,
+                                      d=cfg.dim, n=n_rows,
+                                      counts=measure.citation2_link_counts)
+    scatter_report(card, "citation2-like", ids, ct, n, live, log=log)
+    plain_ms = time_ms(
+        lambda: scatter.scatter_rows_add_plain(ids, ct, n, live), 3, 1)
+    log(f"scatter citation2-like plain version {plain_ms:.4f} ms")
+    del ids, ct, live
+    torch.cuda.empty_cache()
+
+
+def _count_quantiles(counts):
+    q = torch.quantile(counts.float(), torch.linspace(0, 1, 21,
+                                                      device=counts.device))
+    return ", ".join(f"{x:.0f}" for x in q.tolist())
+
+
+def phase_citation2_eval(dev, card, ds, tabs, cfg, batch):
+    """run_eval -> test_citation2 at test batch ``batch``: every score
+    finite, MRR in [0, 1], the forward kernel's launches equal to the
+    score batches, one batch of the negative sweep through the kernel
+    within SCORE_TOL of the plain path; propagate ms and links/s."""
+    from lpformer_tpu_torch.evalx import harness
+    from lpformer_tpu_torch.models import link_transformer as lt
+    from lpformer_tpu_torch.ops.context import extract_context
+    from lpformer_tpu_torch.train import trainer
+
+    t = tabs["combined"]
+    params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
+                              in_dim=int(ds.graph.x.shape[1]), device=dev)
+    sizes = [ds.valid_neg.size, len(ds.valid_pos), len(ds.test_pos),
+             ds.test_neg.size]
+    n_batches = sum(-(-m // batch) for m in sizes)
+    scored = []
+    real = harness.score_edges
+
+    def recording(*a, **kw):
+        scored.append(real(*a, **kw))
+        return scored[-1]
+
+    harness.score_edges = recording
+    t["op"].launches = 0
+    try:
+        t0 = time.perf_counter()
+        res = trainer.run_eval(params, cfg, ds,
+                               trainer.TrainArgs(test_batch_size=batch))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        harness.score_edges = real
+    launches = t["op"].launches
+    links = sum(len(x) for x in scored)
+    with torch.no_grad():
+        prop_ms = time_ms(lambda: lt.propagate(params, cfg, ds.graph), 2, 1)
+    log(f"run_eval -> test_citation2 (citation2-like, batch {batch}): "
+        f"{wall * 1e3:.1f} ms wall, {links} links in {n_batches} batches, "
+        f"{launches} forward kernel launches; MRR "
+        + "/".join(f"{x:.4f}" for x in res["MRR"]) + " (train/valid/test); "
+        f"propagate {prop_ms:.1f} ms; {links / wall:.0f} links/s over the "
+        f"sweep  [{card}]")
+    if [len(x) for x in scored] != sizes or not all(
+            np.isfinite(x).all() for x in scored):
+        raise AssertionError("citation2 scores not finite or of the wrong "
+                             "shape")
+    if list(res) != ["MRR"] or not all(0.0 <= x <= 1.0 for x in res["MRR"]):
+        raise AssertionError(f"citation2 MRR out of range: {res}")
+    if launches != n_batches * cfg.trans_layers:
+        raise AssertionError(f"{launches} launches for {n_batches} batches")
+
+    # the first batch of the negative sweep: kernel vs plain, and its
+    # valid slots per link beside a batch of train links (train mode)
+    k = ds.valid_neg.shape[1]
+    links = np.stack([np.repeat(ds.valid_pos[:, 0], k),
+                      ds.valid_neg.reshape(-1)], axis=1)[:batch]
+    with torch.no_grad():
+        X = lt.propagate(params, cfg, ds.graph)
+        src, tgt = _scores_vs_plain(dev, ds.graph, t, harness.make_score_fn(
+            cfg), params, X, links, "citation2-like")
+        ctx = extract_context(ds.graph.adj_rows, ds.graph.ppr_rows, src, tgt,
+                              cfg.context)
+        train = _extract(ds, cfg, ds.train_pos[:batch], True, dev)
+    for label, c in (("eval sweep", ctx), ("train", train)):
+        n = c.valid.sum(1)
+        log(f"valid slots per link (citation2-like {label} batch): mean "
+            f"{n.float().mean():.2f}, quantiles 0-100% by 5: "
+            f"{_count_quantiles(n)} of {c.valid.shape[1]}")
+
+
+def phase_citation2_train(dev, card, ds, tabs, cfg, batch, steps=8):
+    """The citation2-like training step: one step through the kernels
+    against the plain versions (dropout off, fixed negatives), then
+    ``steps`` steps with the default dropouts, every loss finite and rows
+    1-3 launched once per call."""
+    _step_pair(dev, ds, "combined", tabs, cfg, batch)
+    t = tabs["combined"]
+    counters = _counters(tabs)
+    for f in counters.values():
+        f.launches = 0
+    losses = _timed_steps(dev, card, ds, "combined (citation2-like)", cfg,
+                          batch, steps)
+    launches = {n: f.launches for n, f in counters.items()}
+    want = dict.fromkeys(counters, 0)
+    for name in (t["fwd_entry"][0], t["bwd_entry"][0], "scatter_rows_add"):
+        want[name] = 2 * steps * cfg.trans_layers
+    lv = torch.stack(losses).cpu()
+    log(f"citation2-like steps: losses " + ", ".join(
+        f"{x:.4f}" for x in lv.tolist()) + f"; launches {launches}")
+    if not bool(torch.isfinite(lv).all()):
+        raise AssertionError("a citation2-like training loss is not finite")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
 
 
 def main() -> int:
@@ -1009,6 +1338,25 @@ def main() -> int:
     phase_train(dev, card, ds, "combined", tabs, cfg=presets.DDI_LIKE_CONFIG,
                 batch=presets.DDI_LIKE_BATCH)
     stamp("ddi-like path")
+    del ds
+    torch.cuda.empty_cache()
+
+    phase_heart(dev, card, tabs)
+    stamp("HeaRT sweep")
+    torch.cuda.empty_cache()
+
+    # the citation2-like preset: 1M nodes on the BlockedBELL, dim 64,
+    # batch 32768, the combined table of 96 (rows 1-3)
+    cfg, batch = presets.CITATION2_LIKE_CONFIG, presets.CITATION2_LIKE_BATCH
+    ds = phase_citation2_build(dev)
+    stamp("citation2-like build")
+    phase_citation2_spmm(dev, card, ds, cfg.dim)
+    phase_citation2_kernels(dev, card, tabs, cfg, batch, ds.num_nodes + 1)
+    stamp("citation2-like SpMM and kernel checks")
+    phase_citation2_train(dev, card, ds, tabs, cfg, batch)
+    stamp("citation2-like training")
+    phase_citation2_eval(dev, card, ds, tabs, cfg, batch)
+    stamp("citation2-like eval")
     del ds
 
     for e, path in entries:

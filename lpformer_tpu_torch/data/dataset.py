@@ -16,6 +16,7 @@ import torch
 from lpformer_tpu_torch import resolve_device
 from lpformer_tpu_torch.graph import preprocess as pp
 from lpformer_tpu_torch.graph.containers import (
+    BlockedBELL,
     BucketedELL,
     CSRGraph,
     GraphBundle,
@@ -23,8 +24,9 @@ from lpformer_tpu_torch.graph.containers import (
 )
 from lpformer_tpu_torch.ops import masking
 
-# At this size the JAX package switches propagation to the tiled
-# BlockedBELL / BlockedCOO layouts, which the port does not have yet.
+# From this size propagation takes the tiled big-graph layout: the gather
+# row rate from a full [N, dim] table degrades with its size
+# (lpformer_tpu/data/dataset.py:133-140).
 BLOCKED_MIN_NODES = 262_144
 
 
@@ -62,24 +64,32 @@ def build_graph_bundle(
     adj_cap: Optional[int] = None,
     ppr_cap: Optional[int] = None,
     mask_uniq_keys: Optional[np.ndarray] = None,
+    build_ell: Optional[bool] = None,
+    build_blocked: Optional[bool] = None,
+    mask_input: bool = False,
     device=None,
 ) -> GraphBundle:
     """Assemble the graph state from the raw edge_index on ``device``:
       * the weighted symmetric adjacency for propagation, dst-sorted, with
-        its static GCN normalisation and BucketedELL layout
-        (reference adj_t, read_datasets.py:85-92);
+        its static GCN normalisation (reference adj_t,
+        read_datasets.py:85-92) and its SpMM layout;
       * the binarized padded rows for context extraction, valued with the
         self-PPR ppr(u, v) (adj_mask, :95);
       * padded PPR rows from ``ppr_csr``, flagged where v is in N(u).
     With ``mask_uniq_keys`` (the sorted unique train-edge keys of
     ``masking.train_edge_info``) the adjacency rows carry each entry's
     train-edge rank, which batch masking in training reads.
+
+    The SpMM layout follows the JAX package's rule: ``build_blocked``
+    (default: from BLOCKED_MIN_NODES nodes) builds the tiled BlockedBELL;
+    ``build_ell`` (default: when no blocked layout exists) the BucketedELL.
+    ``mask_input`` (the JAX package's BlockedCOO with edge ids on big
+    graphs, batch-masked propagation weights) is not ported and raises;
+    a BlockedCOO is reached by building it directly
+    (``BlockedCOO.from_coo``) and placing it in the bundle's ``blk``.
     """
-    if num_nodes >= BLOCKED_MIN_NODES:
-        raise NotImplementedError(
-            f"{num_nodes} nodes needs the BlockedBELL/BlockedCOO propagation "
-            f"layouts (>= {BLOCKED_MIN_NODES} nodes), not yet ported"
-        )
+    if mask_input:
+        raise NotImplementedError("mask_input is not ported yet")
     dev = resolve_device(device)
     s, d, w = pp.symmetrize(edge_src, edge_dst, edge_w, num_nodes)
     ps_, pd_, pw_ = pp.sort_by_dst(
@@ -108,7 +118,14 @@ def build_graph_bundle(
     dinv = 1.0 / np.sqrt(deg_w)
     w_norm = (dinv[ps_] * pw_ * dinv[pd_]).astype(np.float32)
     w_diag = (dinv * dinv).astype(np.float32)
-    ell = BucketedELL.from_sorted_coo(ps_, pd_, num_nodes, w_norm=w_norm)
+    if build_blocked is None:
+        build_blocked = num_nodes >= BLOCKED_MIN_NODES
+    bbell = (BlockedBELL.from_coo(ps_, pd_, num_nodes, w_norm=w_norm)
+             if build_blocked else None)
+    if build_ell is None:
+        build_ell = bbell is None
+    ell = (BucketedELL.from_sorted_coo(ps_, pd_, num_nodes, w_norm=w_norm)
+           if build_ell else None)
     return GraphBundle(
         x=np.asarray(x, np.float32),
         edge_src=ps_.astype(np.int32),
@@ -122,6 +139,7 @@ def build_graph_bundle(
         ell=ell,
         w_norm=w_norm,
         w_diag=w_diag,
+        bbell=bbell,
     ).to(dev)
 
 
@@ -135,10 +153,12 @@ class LinkPredDataset:
     train_pos_val: np.ndarray        # [V, 2] random train subset
                                      # (reference read_datasets.py:70-71)
     valid_pos: np.ndarray
-    valid_neg: np.ndarray            # [Vn, 2]
+    valid_neg: np.ndarray            # [Vn, 2]; [V, K, 2] with heart; [V, K]
+                                     # target ids for a citation2 sweep
     test_pos: np.ndarray
     test_neg: np.ndarray
     metric: str = "MRR"              # reference run.py:102-120
+    heart: bool = False              # per-positive negatives (HeaRT)
     # masking precompute (reference train_model.py:38-45 semantics)
     mask_uniq_keys: Optional[np.ndarray] = None
     mask_mult: Optional[np.ndarray] = None

@@ -45,6 +45,8 @@ def synthetic_dataset(
     feat_dim: int = 16,
     alpha: float = 0.15,
     eps: float = 1e-3,
+    heart: bool = False,
+    heart_negs: int = 8,
     adj_cap: Optional[int] = None,
     ppr_cap: Optional[int] = None,
     metric: str = "MRR",
@@ -53,14 +55,21 @@ def synthetic_dataset(
     device=None,
 ) -> LinkPredDataset:
     """The power-law synthetic dataset; the adjacency is the symmetrized
-    train positives (reference read_datasets.py:85-95)."""
+    train positives (reference read_datasets.py:85-95). With ``heart``
+    every eval positive gets its own ``heart_negs`` negatives, [P, K, 2]."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     train_pos = random_edges(rng, num_nodes, num_train, power)
     valid_pos = random_edges(rng, num_nodes, num_eval, power)
     test_pos = random_edges(rng, num_nodes, num_eval, power)
-    valid_neg = random_edges(rng, num_nodes, num_eval)
-    test_neg = random_edges(rng, num_nodes, num_eval)
+    if heart:
+        valid_neg = random_edges(rng, num_nodes, num_eval * heart_negs)
+        valid_neg = valid_neg.reshape(num_eval, heart_negs, 2)
+        test_neg = random_edges(rng, num_nodes, num_eval * heart_negs)
+        test_neg = test_neg.reshape(num_eval, heart_negs, 2)
+    else:
+        valid_neg = random_edges(rng, num_nodes, num_eval)
+        test_neg = random_edges(rng, num_nodes, num_eval)
     x = rng.standard_normal((num_nodes, feat_dim)).astype(np.float32)
 
     src, dst = train_pos[:, 0], train_pos[:, 1]
@@ -86,4 +95,5 @@ def synthetic_dataset(
         test_pos=test_pos,
         test_neg=test_neg,
         metric=metric,
+        heart=heart,
     )

@@ -1,10 +1,15 @@
 """Evaluation harness (counterpart of ``lpformer_tpu/evalx/harness.py``).
 
-``test_standard`` is the reference's test() (src/train/testing.py:124-173):
-the node encodings are propagated ONCE and reused for every batch of
-train_pos_val / valid / test positives and negatives, and every batch has
-the same shape (the last one padded). The HeaRT per-positive negatives and
-the citation2 negative sweep come with a later slice.
+  * ``test_standard``: the reference's test() (src/train/testing.py:
+    124-173), with the HeaRT per-positive negatives (:96-121);
+  * ``test_citation2``: propagate once, then each positive's source
+    against its [K] negative targets (:14-74), including the reference's
+    quirk of reporting the valid predictions as the train ones (:70).
+
+The node encodings are propagated ONCE and reused for every batch, and
+every batch has the same shape (the last one padded). The JAX package
+scores groups of eight batches in one launch (a TPU dispatch measure);
+here each batch is one call, with the same scores.
 """
 from __future__ import annotations
 
@@ -58,11 +63,13 @@ def test_standard(
     ds: LinkPredDataset,
     batch_size: int = 32768,
     k_list: Sequence[int] = (20, 50, 100),
+    heart: bool = False,
     with_mrr: bool = None,
 ) -> Dict[str, tuple]:
     """Reference test(): {metric: (train, valid, test)} with Hits@K for
     ``k_list`` and MRR when ``with_mrr`` (default: the dataset's metric
-    is MRR)."""
+    is MRR). With ``heart`` the negatives are per positive, [P, K, 2],
+    and the result is the per-positive MRR alone."""
     score_fn = make_score_fn(cfg)
     X_train = lt.propagate(params, cfg, ds.graph)
     X_test = (X_train if ds.graph_test is ds.graph
@@ -77,6 +84,15 @@ def test_standard(
     pos_train = sc(ds.train_pos_val)
     pos_valid = sc(ds.valid_pos)
     pos_test = sc(ds.test_pos, test_set=True)
+    if heart:
+        def heart_neg(neg, test_set):
+            p, k, _ = neg.shape
+            return sc(np.asarray(neg).reshape(p * k, 2),
+                      test_set=test_set).reshape(p, k)
+
+        return metrics.get_metric_score_citation2(
+            pos_train, pos_valid, heart_neg(ds.valid_neg, False), pos_test,
+            heart_neg(ds.test_neg, True))
     neg_valid = sc(ds.valid_neg)
     neg_test = sc(ds.test_neg, test_set=True)
     if with_mrr is None:
@@ -85,3 +101,39 @@ def test_standard(
         pos_train, pos_valid, neg_valid, pos_test, neg_test,
         k_list=k_list, with_mrr=with_mrr,
     )
+
+
+@torch.no_grad()
+def test_citation2(
+    params,
+    cfg: LPFormerConfig,
+    ds: LinkPredDataset,
+    batch_size: int = 32768,
+) -> Dict[str, tuple]:
+    """Reference test_citation2 (testing.py:50-74): the negatives are
+    [P, K] target ids, each scored against its positive's source."""
+    score_fn = make_score_fn(cfg)
+    X = lt.propagate(params, cfg, ds.graph)
+    X_test = (X if ds.graph_test is ds.graph
+              else lt.propagate(params, cfg, ds.graph_test))
+
+    def sc(edges, test_set=False):
+        g = ds.graph_test if test_set else ds.graph
+        return torch.as_tensor(score_edges(
+            score_fn, params, g, X_test if test_set else X, edges,
+            batch_size))
+
+    def neg_scores(pos, neg_targets, test_set):
+        p, k = neg_targets.shape
+        edges = np.stack([np.repeat(np.asarray(pos)[:, 0], k),
+                          np.asarray(neg_targets).reshape(-1)], axis=1)
+        return sc(edges, test_set=test_set).reshape(p, k)
+
+    neg_valid = neg_scores(ds.valid_pos, ds.valid_neg, False)
+    pos_valid = sc(ds.valid_pos)
+    pos_test = sc(ds.test_pos, test_set=True)
+    neg_test = neg_scores(ds.test_pos, ds.test_neg, True)
+    # the reference's quirk (testing.py:70): the train predictions are
+    # the valid ones
+    return metrics.get_metric_score_citation2(
+        pos_valid, pos_valid, neg_valid, pos_test, neg_test)

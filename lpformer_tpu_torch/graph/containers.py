@@ -4,15 +4,19 @@
   * ``CSRGraph``     host CSR in numpy, the preprocessing currency.
   * ``PaddedRows``   [N, K] padded per-row neighbour lists, sorted, pad = N,
                      with optional per-entry values and flags.
+  * ``ELLAdjacency`` the dst-sorted propagation adjacency as one [N, cap]
+                     slot grid plus an overflow COO, for ``spmm_ell``.
   * ``BucketedELL``  the dst-sorted propagation adjacency in power-of-two
                      degree tiers, for the scatter-free SpMM.
+  * ``BlockedCOO``   the edge list tiled by (dst block, src block), for
+                     ``spmm_blocked`` on big node tables.
+  * ``BlockedBELL``  a BucketedELL per (dst block, src block) tile, the
+                     big-graph layout of ``spmm_bbell``.
   * ``GraphBundle``  everything a forward pass needs, as tensors.
 
 Every container is built on the host in numpy with the same rules as the
 JAX package (so the arrays are equal, element for element), then moved to
-a device with ``.to(device)``. The big-graph layouts ``BlockedCOO`` and
-``BlockedBELL`` are not ported yet (``data/dataset.py`` refuses graphs
-that would need them).
+a device with ``.to(device)``.
 """
 from __future__ import annotations
 
@@ -124,6 +128,90 @@ class PaddedRows:
 
 
 @dataclasses.dataclass(frozen=True)
+class ELLAdjacency:
+    """Hybrid ELL + overflow-COO layout of the dst-sorted propagation
+    adjacency, for ``ops/spmm.py:spmm_ell``. Each destination row keeps
+    its first ``cap`` in-edges in a dense [N, cap] slot grid (``nb`` =
+    source ids, pad 0; ``slot_edge`` = index into the dst-sorted edge
+    array, pad ``num_edges``, which reads weight 0.0 from the extended
+    weight vector). In-edges past ``cap`` stay a COO remainder that the
+    SpMM gathers and scatter-adds. ``cap`` is the cost model's of the
+    reference layout (``from_sorted_coo``)."""
+
+    nb: object            # [N, cap] int32 source ids, pad 0
+    slot_edge: object     # [N, cap] int32 edge index, pad num_edges
+    ov_src: object        # [E_ov] int32 (dst-sorted remainder)
+    ov_dst: object        # [E_ov] int32
+    ov_edge: object       # [E_ov] int32 edge index
+    cap: int
+    num_nodes: int
+    num_edges: int
+    w_slots: Optional[object] = None  # [N, cap] f32 static norm, pad 0.0
+    ov_w: Optional[object] = None     # [E_ov] f32
+
+    # relative cost of an overflow edge (scatter-add) against an ELL slot
+    # (gather + multiply-add), the reference layout's constant
+    _OVERFLOW_COST = 6.5
+
+    def with_weights(self, w_norm: np.ndarray) -> "ELLAdjacency":
+        """Attach static slot-laid-out weights (host, numpy)."""
+        w_ext = np.concatenate(
+            [np.asarray(w_norm, np.float32), np.zeros(1, np.float32)])
+        return dataclasses.replace(
+            self, w_slots=w_ext[np.asarray(self.slot_edge)],
+            ov_w=w_ext[np.asarray(self.ov_edge)])
+
+    @staticmethod
+    def from_sorted_coo(
+        edge_src: np.ndarray,
+        edge_dst: np.ndarray,
+        num_nodes: int,
+        max_cap: int = 128,
+    ) -> Optional["ELLAdjacency"]:
+        """Build from a (dst, src)-sorted COO edge list; None when the cost
+        model prefers the pure-COO path (cap 0)."""
+        e = len(edge_dst)
+        if e == 0 or num_nodes == 0:
+            return None
+        deg = np.bincount(edge_dst, minlength=num_nodes)
+        cmax = int(min(deg.max(), max_cap))
+        # overflow(c) = sum_v max(deg_v - c, 0) = sum_{i > c} t[i], where
+        # t[i] = #nodes with degree >= i
+        hist = np.bincount(deg)
+        t = np.cumsum(hist[::-1])[::-1]
+        suf = np.concatenate([np.cumsum(t[::-1])[::-1], [0.0]])
+        over = suf[1:cmax + 2]
+        cost = (num_nodes * np.arange(cmax + 1)
+                + ELLAdjacency._OVERFLOW_COST * over)
+        cap = int(np.argmin(cost))
+        if cap == 0:
+            return None
+        indptr = np.concatenate([[0], np.cumsum(deg)])
+        pos = np.arange(e, dtype=np.int64) - indptr[edge_dst]
+        main = pos < cap
+        nb = np.zeros((num_nodes, cap), np.int32)
+        slot_edge = np.full((num_nodes, cap), e, np.int32)
+        nb[edge_dst[main], pos[main]] = edge_src[main]
+        slot_edge[edge_dst[main], pos[main]] = np.nonzero(main)[0]
+        ov = np.nonzero(~main)[0].astype(np.int32)
+        return ELLAdjacency(
+            nb=nb, slot_edge=slot_edge,
+            ov_src=np.asarray(edge_src)[ov].astype(np.int32),
+            ov_dst=np.asarray(edge_dst)[ov].astype(np.int32),
+            ov_edge=ov, cap=cap, num_nodes=num_nodes, num_edges=e,
+        )
+
+    def to(self, device) -> "ELLAdjacency":
+        return dataclasses.replace(
+            self, nb=_to(self.nb, device),
+            slot_edge=_to(self.slot_edge, device),
+            ov_src=_to(self.ov_src, device), ov_dst=_to(self.ov_dst, device),
+            ov_edge=_to(self.ov_edge, device),
+            w_slots=_to(self.w_slots, device), ov_w=_to(self.ov_w, device),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class BucketedELL:
     """Degree-bucketed ELL: destination rows grouped into power-of-two
     degree tiers; tier t is a dense [Nb_t, cap_t] slot grid (cap_t = 2^t,
@@ -131,8 +219,8 @@ class BucketedELL:
     slot, so the SpMM is row gathers and sums with no scatter. Per-tier
     outputs are concatenated and un-permuted by one [N]-row gather
     (``outmap``; degree-0 rows map to an appended zeros row). The slots'
-    edge ids of the JAX layout, which re-weight a batch-masked graph in
-    training, come with the training slice."""
+    edge ids of the JAX layout, which re-weight a batch-masked graph
+    (``mask_input``, not ported), are not stored."""
 
     nbs: Tuple               # per tier: [Nb_t, cap_t] int32 src ids, pad 0
     w_slots: Optional[Tuple]  # per tier: [Nb_t, cap_t] f32 static norm
@@ -209,6 +297,10 @@ class BucketedELL:
             num_edges=e,
         )
 
+    @property
+    def slot_total(self) -> int:
+        return sum(nb.shape[0] * nb.shape[1] for nb in self.nbs)
+
     def to(self, device) -> "BucketedELL":
         return dataclasses.replace(
             self,
@@ -217,6 +309,156 @@ class BucketedELL:
                      else tuple(_to(a, device) for a in self.w_slots)),
             outmap=_to(self.outmap, device),
         )
+
+
+def _tuple_to(xs, device):
+    return None if xs is None else tuple(_to(a, device) for a in xs)
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockedCOO:
+    """(dst block x src block)-tiled COO for large node tables: every
+    neighbour gather of a tile addresses one ``block``-row slice of x.
+    Per-tile arrays in tile order ``t = jj * kb + ii`` (jj = dst block,
+    ii = src block), dst-sorted within each tile and padded to a multiple
+    of ``pad_to`` (pad: weight 0, dst_local = block, a dummy segment row,
+    src_local = 0, edge id E). ``te`` holds each slot's edge index, so a
+    batch-masked graph re-weights the tiles; ``tw`` the static weights."""
+
+    sl: Tuple             # per tile: [E_t] int32 src - ii * block
+    dl: Tuple             # per tile: [E_t] int32 dst - jj * block (pad block)
+    tw: Optional[Tuple]   # per tile: [E_t] f32 static normalised weights
+    te: Optional[Tuple]   # per tile: [E_t] int32 edge index (pad E)
+    block: int
+    kb: int
+    num_nodes: int
+    num_edges: int
+
+    @staticmethod
+    def from_coo(
+        edge_src: np.ndarray,
+        edge_dst: np.ndarray,
+        num_nodes: int,
+        w_norm: Optional[np.ndarray] = None,
+        block: int = 131072,
+        pad_to: int = 1024,
+        with_edge_ids: bool = True,
+    ) -> Optional["BlockedCOO"]:
+        e = len(edge_dst)
+        if e == 0 or num_nodes == 0:
+            return None
+        src = np.asarray(edge_src, np.int64)
+        dst = np.asarray(edge_dst, np.int64)
+        kb = -(-num_nodes // block)
+        jb = dst // block
+        ib = src // block
+        order = np.lexsort((dst, ib, jb))
+        s, d = src[order], dst[order]
+        key = jb[order] * kb + ib[order]
+        bounds = np.searchsorted(key, np.arange(kb * kb + 1))
+        w = None if w_norm is None else np.asarray(w_norm, np.float32)[order]
+        sl, dl, tw, te = [], [], [], []
+        for t in range(kb * kb):
+            lo, hi = int(bounds[t]), int(bounds[t + 1])
+            ii, jj = t % kb, t // kb
+            s_t = (s[lo:hi] - ii * block).astype(np.int32)
+            d_t = (d[lo:hi] - jj * block).astype(np.int32)
+            w_t = None if w is None else w[lo:hi]
+            e_t = order[lo:hi].astype(np.int32)
+            m = hi - lo
+            p = (-m) % pad_to if m else pad_to
+            if p:
+                s_t = np.concatenate([s_t, np.zeros(p, np.int32)])
+                d_t = np.concatenate([d_t, np.full(p, block, np.int32)])
+                if w_t is not None:
+                    w_t = np.concatenate([w_t, np.zeros(p, np.float32)])
+                e_t = np.concatenate([e_t, np.full(p, e, np.int32)])
+            sl.append(s_t)
+            dl.append(d_t)
+            if w_t is not None:
+                tw.append(w_t)
+            if with_edge_ids:
+                te.append(e_t)
+        return BlockedCOO(
+            sl=tuple(sl), dl=tuple(dl),
+            tw=tuple(tw) if w is not None else None,
+            te=tuple(te) if with_edge_ids else None,
+            block=block, kb=kb, num_nodes=num_nodes, num_edges=e,
+        )
+
+    @property
+    def slot_total(self) -> int:
+        return sum(int(a.shape[0]) for a in self.sl)
+
+    def to(self, device) -> "BlockedCOO":
+        return dataclasses.replace(
+            self, sl=_tuple_to(self.sl, device), dl=_tuple_to(self.dl, device),
+            tw=_tuple_to(self.tw, device), te=_tuple_to(self.te, device))
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockedBELL:
+    """(dst block x src block)-tiled degree-bucketed ELL, the big-graph
+    layout: every tile is a small BucketedELL whose rows are dst-local and
+    whose slot ids are src-local, so a tile's sweep gathers from one
+    ``block``-row slice of x, and a dst block's tiles add elementwise. No
+    scatter anywhere. Static weights only (the slots' prelaid GCN norm):
+    a batch-masked graph re-weights through BlockedCOO instead."""
+
+    tiles: Tuple          # kb * kb entries in order jj * kb + ii:
+                          # BucketedELL or None for an empty tile
+    block: int
+    kb: int
+    num_nodes: int
+    num_edges: int
+
+    @staticmethod
+    def from_coo(
+        edge_src: np.ndarray,
+        edge_dst: np.ndarray,
+        num_nodes: int,
+        w_norm: np.ndarray,
+        block: int = 131072,
+    ) -> Optional["BlockedBELL"]:
+        """Build from a (dst, src)-sorted COO with static normalised
+        weights; None for an empty graph or a single block (kb <= 1)."""
+        e = len(edge_dst)
+        if e == 0 or num_nodes == 0:
+            return None
+        kb = -(-num_nodes // block)
+        if kb <= 1:
+            return None
+        src = np.asarray(edge_src)
+        dst = np.asarray(edge_dst)
+        w = np.asarray(w_norm, np.float32)
+        sb = src // block
+        db = dst // block
+        tiles = []
+        for jj in range(kb):
+            rows_jj = min(block, num_nodes - jj * block)
+            mj = db == jj
+            for ii in range(kb):
+                m = mj & (sb == ii)
+                if not m.any():
+                    tiles.append(None)
+                    continue
+                # masking a dst-sorted list keeps it dst-sorted
+                tiles.append(BucketedELL.from_sorted_coo(
+                    (src[m] - ii * block).astype(np.int32),
+                    (dst[m] - jj * block).astype(np.int32),
+                    rows_jj, w_norm=w[m],
+                ))
+        return BlockedBELL(tiles=tuple(tiles), block=block, kb=kb,
+                           num_nodes=num_nodes, num_edges=e)
+
+    @property
+    def slot_total(self) -> int:
+        return sum(t.slot_total for t in self.tiles if t is not None)
+
+    def to(self, device) -> "BlockedBELL":
+        return dataclasses.replace(
+            self, tiles=tuple(None if t is None else t.to(device)
+                              for t in self.tiles))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -241,6 +483,11 @@ class GraphBundle:
     ell: Optional[BucketedELL]
     w_norm: torch.Tensor               # [E] float32 static GCN norm
     w_diag: torch.Tensor               # [N] float32 self-loop coefficient
+    # the big-graph layouts, preferred over ``ell`` when present: the
+    # (dst block x src block)-tiled BucketedELL (static norm), and the
+    # tiled COO (static ``tw`` or re-weighted through ``te``)
+    blk: Optional[BlockedCOO] = None
+    bbell: Optional[BlockedBELL] = None
 
     def to(self, device) -> "GraphBundle":
         return dataclasses.replace(
@@ -252,5 +499,7 @@ class GraphBundle:
             ppr_rows=self.ppr_rows.to(device),
             degree=_to(self.degree, device),
             ell=None if self.ell is None else self.ell.to(device),
+            blk=None if self.blk is None else self.blk.to(device),
+            bbell=None if self.bbell is None else self.bbell.to(device),
             w_norm=_to(self.w_norm, device), w_diag=_to(self.w_diag, device),
         )

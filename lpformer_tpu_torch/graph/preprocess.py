@@ -105,6 +105,35 @@ def binarize_csr(csr: CSRGraph) -> CSRGraph:
     )
 
 
+def gcn_norm_edges(
+    src: np.ndarray,
+    dst: np.ndarray,
+    w: np.ndarray,
+    num_nodes: int,
+    add_self_loops: bool = True,
+    fill_value: float = 1.0,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Symmetric GCN normalisation D^-1/2 (A [+ I]) D^-1/2, PyG's
+    ``gcn_norm`` (reference: src/models/other_models.py:35): self loops
+    filled with ``fill_value``, degrees the dst-row sums of the weights
+    with the self loop. Returns the (src, dst, w_norm) COO, the self loops
+    appended at the end."""
+    src = np.asarray(src, dtype=np.int64)
+    dst = np.asarray(dst, dtype=np.int64)
+    w = np.asarray(w, dtype=np.float32)
+    if add_self_loops:
+        loop = np.arange(num_nodes, dtype=np.int64)
+        src = np.concatenate([src, loop])
+        dst = np.concatenate([dst, loop])
+        w = np.concatenate(
+            [w, np.full(num_nodes, fill_value, dtype=np.float32)])
+    deg = np.zeros(num_nodes, dtype=np.float64)
+    np.add.at(deg, dst, w)
+    dinv = np.where(deg > 0, 1.0 / np.sqrt(np.maximum(deg, 1e-300)), 0.0)
+    w_norm = (dinv[src] * w * dinv[dst]).astype(np.float32)
+    return src.astype(np.int32), dst.astype(np.int32), w_norm
+
+
 def sort_by_dst(
     src: np.ndarray, dst: np.ndarray, w: np.ndarray, num_nodes: int
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -3,8 +3,8 @@
 Per layer, the reference's order: conv -> LayerNorm -> (dropout) -> ReLU ->
 residual when dims match (reference: src/models/other_models.py:10-76).
 GCNConv is PyG's: x' = A_hat (x W) + b with A_hat = D^-1/2 (A + I) D^-1/2.
-The port runs the BucketedELL layout with the bundle's static
-normalisation; the other propagation layouts come with later slices.
+The propagation runs on the layout the caller passes, in the JAX
+package's order of preference (``gcn_apply``).
 """
 from __future__ import annotations
 
@@ -12,8 +12,9 @@ from typing import Dict, Optional
 
 import torch
 
+from lpformer_tpu_torch.graph.containers import BucketedELL
 from lpformer_tpu_torch.nn import core as nn
-from lpformer_tpu_torch.ops.spmm import spmm_bell
+from lpformer_tpu_torch.ops import spmm
 
 
 def gcn_init(
@@ -47,8 +48,10 @@ def gcn_init(
 def gcn_apply(
     params: Dict,
     x: torch.Tensor,
-    ell,
-    w_diag: torch.Tensor,
+    edge_src: torch.Tensor,
+    edge_dst: torch.Tensor,
+    edge_w: torch.Tensor,
+    num_nodes: int,
     *,
     gnn_drop: float = 0.0,
     residual: bool = False,
@@ -56,15 +59,47 @@ def gcn_apply(
     gen: Optional[torch.Generator] = None,
     train: bool = False,
     mm_dtype=None,
+    ell=None,
+    norm=None,
+    blk=None,
+    bbell=None,
 ) -> torch.Tensor:
-    """GCN over the BucketedELL ``ell`` with its prelaid static weights;
-    ``w_diag`` is the normalised self-loop coefficient. With ``train`` and
-    a generator, each layer draws one ``gnn_drop`` dropout mask between
-    its LayerNorm and its ReLU."""
+    """GCN over the dst-sorted COO ``edge_src/dst/w``. ``norm`` is the
+    host-precomputed (w_norm, diag) of the static weights; without it the
+    normalisation is recomputed on the device, once for all layers. Each
+    layer's SpMM takes the first layout present, as the JAX package's
+    does: ``bbell`` (static norm only), then ``blk`` (its static ``tw``
+    under a static norm, else re-weighted through its edge ids), then
+    ``ell`` (a BucketedELL with static slot weights, or an ELLAdjacency),
+    then the COO. With ``train`` and a generator, each layer draws one
+    ``gnn_drop`` dropout mask between its LayerNorm and its ReLU."""
+    if norm is not None:
+        w_norm, diag = norm
+    else:
+        w_norm, diag = spmm.gcn_norm_device(edge_src, edge_dst, edge_w,
+                                            num_nodes)
+    ell_static = norm is not None and ell is not None and ell.w_slots is not None
+    blk_static = norm is not None and blk is not None and blk.tw is not None
     lns = params.get("lns")
     for i, conv in enumerate(params["convs"]):
         xi = nn.matmul(x, conv["w"], mm_dtype)
-        xi = spmm_bell(ell, xi, diag=w_diag, gather_dtype=mm_dtype)
+        if bbell is not None and norm is not None:
+            xi = spmm.spmm_bbell(bbell, xi, diag=diag, gather_dtype=mm_dtype)
+        elif blk is not None:
+            xi = spmm.spmm_blocked(blk, None if blk_static else w_norm, xi,
+                                   diag=diag, gather_dtype=mm_dtype)
+        elif isinstance(ell, BucketedELL):
+            if not ell_static:
+                raise NotImplementedError(
+                    "re-weighting a BucketedELL needs its slots' edge ids "
+                    "(mask_input), not ported yet")
+            xi = spmm.spmm_bell(ell, xi, diag=diag, gather_dtype=mm_dtype)
+        elif ell is not None:
+            xi = spmm.spmm_ell(ell, None if ell_static else w_norm, xi,
+                               diag=diag, gather_dtype=mm_dtype)
+        else:
+            xi = spmm.spmm(edge_src, edge_dst, w_norm, xi, num_nodes,
+                           diag=diag, gather_dtype=mm_dtype)
         xi = xi + conv["bias"]
         if lns is not None:
             xi = nn.layer_norm_apply(lns[i], xi)

@@ -102,13 +102,13 @@ def propagate(params: Dict, cfg: LPFormerConfig, graph: GraphBundle, *,
     """GNN node encoding + final LayerNorm -> X_node [N, dim]
     (reference: link_transformer.py:110-129, node_encoder.py:35-44)."""
     params = nn.cast_matmul_weights(params, cfg.mm_dtype)
-    if graph.ell is None:
-        raise NotImplementedError("propagation needs the BucketedELL layout")
     x = nn.dropout(gen, graph.x, cfg.feat_drop, train)
     x = gcn_apply(
-        params["node_encoder"], x, graph.ell, graph.w_diag,
+        params["node_encoder"], x, graph.edge_src, graph.edge_dst,
+        graph.edge_w, graph.num_nodes,
         gnn_drop=cfg.gnn_drop, residual=cfg.residual, relu=cfg.relu,
-        gen=gen, train=train, mm_dtype=cfg.mm_dtype,
+        gen=gen, train=train, mm_dtype=cfg.mm_dtype, ell=graph.ell,
+        norm=(graph.w_norm, graph.w_diag), blk=graph.blk, bbell=graph.bbell,
     )
     return nn.layer_norm_apply(params["gnn_norm"], x)
 

@@ -8,7 +8,11 @@
     (the bench's --no-combined A/B);
   * ddi-like: bench.py:80-91 PRESETS["ddi-like"], a small dense graph at
     dim 256 (the reference's >32 GB-GPU shape), on the combined table of
-    budget 128, with the same synthetic generator settings (:245-253)."""
+    budget 128, with the same synthetic generator settings (:245-253);
+  * citation2-like: bench.py:64-73 PRESETS["citation2-like"], a big sparse
+    graph (1M nodes, so its propagation runs the tiled BlockedBELL) at dim
+    64 and batch 32768, on the combined table of budget 96, with the same
+    synthetic generator settings (:245-256)."""
 from __future__ import annotations
 
 import dataclasses
@@ -41,3 +45,15 @@ DDI_LIKE_DATA = dict(
     feat_dim=256, eps=5e-4, adj_cap=96, ppr_cap=256,
 )
 DDI_LIKE_BATCH = 4096
+
+# bench.py:64-73: 1,000,000 nodes, 5,000,000 train edges, feat 96, dim 64,
+# batch 32768, 3 GCN layers, the combined budget 96 (its per-class budgets
+# 32 / 64 / 64 are the classic table's), bf16 matmul inputs (:172)
+CITATION2_LIKE_CONFIG = dataclasses.replace(
+    COLLAB_LIKE_CONFIG, dim=64, budget_combined=96, budget_cn=32,
+    budget_onehop=64, budget_non1hop=64)
+CITATION2_LIKE_DATA = dict(
+    seed=0, num_nodes=1_000_000, num_train=5_000_000, num_eval=1000,
+    feat_dim=96, eps=5e-4, adj_cap=96, ppr_cap=256,
+)
+CITATION2_LIKE_BATCH = 32_768

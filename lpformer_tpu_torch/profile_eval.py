@@ -1,10 +1,14 @@
 """Where the eval time goes on the card, from torch.profiler traces.
 
-    python -m lpformer_tpu_torch.profile_eval [--classic]
+    python -m lpformer_tpu_torch.profile_eval [--classic | --citation2]
 
 On the combined context table (presets.COLLAB_LIKE_CONFIG), or with
 ``--classic`` on the classic per-class table
-(presets.COLLAB_LIKE_CLASSIC_CONFIG):
+(presets.COLLAB_LIKE_CLASSIC_CONFIG), or with ``--citation2`` on the
+citation2-like preset (presets.CITATION2_LIKE_CONFIG, the combined table of
+96 at dim 64, its inputs drawn with ``measure.citation2_link_counts``, the
+sweep test_citation2's: 1000 negative targets per positive, batches of
+32768, ``measure.citation2_like_dataset``):
 
 1. The table's fused PE+attention forward wrapper alone on chip_smoke.py's
    main-path inputs, bf16 and f32: its device time per call and every
@@ -33,8 +37,8 @@ from lpformer_tpu_torch.models import link_transformer as lt
 from lpformer_tpu_torch.ops import pe_attention as pa
 from lpformer_tpu_torch.ops import pe_attention_mixed as pam
 from lpformer_tpu_torch.presets import (
-    COLLAB_LIKE_BATCH, COLLAB_LIKE_CLASSIC_CONFIG, COLLAB_LIKE_CONFIG,
-    COLLAB_LIKE_DATA,
+    CITATION2_LIKE_BATCH, CITATION2_LIKE_CONFIG, COLLAB_LIKE_BATCH,
+    COLLAB_LIKE_CLASSIC_CONFIG, COLLAB_LIKE_CONFIG, COLLAB_LIKE_DATA,
 )
 from lpformer_tpu_torch.utils import measure
 from lpformer_tpu_torch.utils.measure import (
@@ -42,9 +46,11 @@ from lpformer_tpu_torch.utils.measure import (
 )
 
 
-def main(classic: bool = False, top: int = 12) -> None:
+def main(classic: bool = False, citation2: bool = False,
+         top: int = 12) -> None:
     dev = resolve_device()
     card = card_line()
+    shape = {}
     if classic:
         op, inputs, bound_ms = (pa.fused_pe_link_attention,
                                 measure.classic_kernel_inputs,
@@ -52,8 +58,12 @@ def main(classic: bool = False, top: int = 12) -> None:
     else:
         op, inputs, bound_ms = (pam.fused_pe_link_attention_mixed,
                                 measure.kernel_inputs, measure.kernel_bound_ms)
+    if citation2:
+        c = CITATION2_LIKE_CONFIG
+        shape = dict(b=CITATION2_LIKE_BATCH, c=c.budget_combined, o=c.dim,
+                     dh=c.dim, counts=measure.citation2_link_counts)
     for dtype in (torch.bfloat16, torch.float32):
-        a = inputs(dev, dtype)
+        a = inputs(dev, dtype, **shape)
 
         def call():
             return op(**a)
@@ -65,15 +75,27 @@ def main(classic: bool = False, top: int = 12) -> None:
               f"[{card}]")
         print_wrapper_trace(f"forward wrapper {str(dtype)[6:]}", call, card)
 
-    cfg = COLLAB_LIKE_CLASSIC_CONFIG if classic else COLLAB_LIKE_CONFIG
-    ds = synthetic_dataset(**COLLAB_LIKE_DATA, device=dev)
+    del a
+    if citation2:
+        cfg, batch = CITATION2_LIKE_CONFIG, CITATION2_LIKE_BATCH
+        ds = measure.citation2_like_dataset(dev)
+        name = "test_citation2"
+
+        def sweep():
+            return harness.test_citation2(params, cfg, ds, batch_size=batch)
+    else:
+        cfg = COLLAB_LIKE_CLASSIC_CONFIG if classic else COLLAB_LIKE_CONFIG
+        batch = COLLAB_LIKE_BATCH
+        ds = synthetic_dataset(**COLLAB_LIKE_DATA, device=dev)
+        name = "test_standard"
+
+        def sweep():
+            return harness.test_standard(params, cfg, ds, batch_size=batch)
     params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
-                              in_dim=COLLAB_LIKE_DATA["feat_dim"], device=dev)
-    harness.test_standard(params, cfg, ds, batch_size=COLLAB_LIKE_BATCH)
-    wall_ms, busy_ms, rows = trace_device(
-        lambda: harness.test_standard(params, cfg, ds,
-                                      batch_size=COLLAB_LIKE_BATCH), top)
-    print(f"test_standard sweep (traced): wall {wall_ms:.3f} ms, device busy "
+                              in_dim=int(ds.graph.x.shape[1]), device=dev)
+    sweep()
+    wall_ms, busy_ms, rows = trace_device(sweep, top)
+    print(f"{name} sweep (traced): wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f} [{card}]")
     for ms, count, name in rows:
         print(f"  {ms:9.3f} ms  {count:5d}x  {name[:100]}")
@@ -81,6 +103,10 @@ def main(classic: bool = False, top: int = 12) -> None:
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--classic", action="store_true",
-                    help="the classic per-class context table")
-    main(ap.parse_args().classic)
+    which = ap.add_mutually_exclusive_group()
+    which.add_argument("--classic", action="store_true",
+                       help="the classic per-class context table")
+    which.add_argument("--citation2", action="store_true",
+                       help="the citation2-like preset and its sweep")
+    args = ap.parse_args()
+    main(args.classic, args.citation2)

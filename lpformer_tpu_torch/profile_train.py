@@ -1,13 +1,17 @@
 """Where a training step's time goes on the card, from a torch.profiler
 trace.
 
-    python -m lpformer_tpu_torch.profile_train [--classic | --ddi] [steps]
+    python -m lpformer_tpu_torch.profile_train [--classic | --ddi |
+                                               --citation2] [steps]
 
 Builds the collab-like dataset (presets.py), with the combined context
 table (COLLAB_LIKE_CONFIG) or with ``--classic`` the classic per-class
 table (COLLAB_LIKE_CLASSIC_CONFIG), or with ``--ddi`` the ddi-like dataset
-and preset (DDI_LIKE_CONFIG: dim 256, combined table), takes two warm-up
-training steps of batch 4096 with the default dropouts, then traces
+and preset (DDI_LIKE_CONFIG: dim 256, combined table), or with
+``--citation2`` the citation2-like ones (CITATION2_LIKE_CONFIG: 1M nodes on
+the BlockedBELL, dim 64, batch 32768), takes two warm-up training steps
+of the preset's batch (4096, or 32768) with the default dropouts, then
+traces
 ``steps``
 (default 5) more: wall time per step, device busy time per step (the CUDA
 kernels' self time), the device idle share, and the kernels that take the
@@ -32,6 +36,7 @@ from lpformer_tpu_torch import resolve_device
 from lpformer_tpu_torch.data.synthetic import synthetic_dataset
 from lpformer_tpu_torch.models import link_transformer as lt
 from lpformer_tpu_torch.presets import (
+    CITATION2_LIKE_BATCH, CITATION2_LIKE_CONFIG, CITATION2_LIKE_DATA,
     COLLAB_LIKE_BATCH, COLLAB_LIKE_CLASSIC_CONFIG, COLLAB_LIKE_CONFIG,
     COLLAB_LIKE_DATA, DDI_LIKE_BATCH, DDI_LIKE_CONFIG, DDI_LIKE_DATA,
 )
@@ -42,11 +47,14 @@ from lpformer_tpu_torch.utils.measure import (
 
 
 def main(steps: int = 5, classic: bool = False, ddi: bool = False,
-         top: int = 15) -> None:
+         citation2: bool = False, top: int = 15) -> None:
     dev = resolve_device()
     card = card_line()
     if ddi:
         cfg, data, batch = DDI_LIKE_CONFIG, DDI_LIKE_DATA, DDI_LIKE_BATCH
+    elif citation2:
+        cfg, data, batch = (CITATION2_LIKE_CONFIG, CITATION2_LIKE_DATA,
+                            CITATION2_LIKE_BATCH)
     else:
         cfg = COLLAB_LIKE_CLASSIC_CONFIG if classic else COLLAB_LIKE_CONFIG
         data, batch = COLLAB_LIKE_DATA, COLLAB_LIKE_BATCH
@@ -132,5 +140,7 @@ if __name__ == "__main__":
                        help="the classic per-class context table")
     which.add_argument("--ddi", action="store_true",
                        help="the ddi-like preset (dim 256)")
+    which.add_argument("--citation2", action="store_true",
+                       help="the citation2-like preset (1M nodes, dim 64)")
     args = ap.parse_args()
-    main(args.steps, args.classic, args.ddi)
+    main(args.steps, args.classic, args.ddi, args.citation2)

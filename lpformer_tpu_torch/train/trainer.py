@@ -11,8 +11,8 @@ The device never waits for the host inside an epoch: each epoch's batch
 indices and weights go to the device in one copy, and the loss is summed
 on the device and fetched once per epoch. Checkpoints (``save_as``,
 ``save_every``, ``resume``), ``mesh``, ``grad_accum`` > 1,
-``steps_per_call`` > 1, ``mask_input`` and ``heart`` are not ported yet
-and raise ``NotImplementedError``.
+``steps_per_call`` > 1 and ``mask_input`` are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -69,7 +69,6 @@ def _refuse_unported(args: TrainArgs) -> None:
         "grad_accum > 1": args.grad_accum > 1,
         "steps_per_call > 1": args.steps_per_call > 1,
         "mask_input": args.mask_input,
-        "heart": args.heart,
     }
     asked = [name for name, on in unported.items() if on]
     if asked:
@@ -117,13 +116,15 @@ def _iter_batches(rng: np.random.Generator, n: int, batch_size: int):
 
 def run_eval(params, cfg: cfg_mod.LPFormerConfig, ds: LinkPredDataset,
              args: TrainArgs) -> Dict[str, tuple]:
-    """test_standard (reference train_model.py:114-117); the citation2
-    sweep and HeaRT are not ported yet."""
-    if "citation" in ds.name.lower():
-        raise NotImplementedError("the citation2 eval sweep is not ported")
+    """The harness the dataset needs (reference train_model.py:114-117):
+    a citation dataset without HeaRT negatives takes the citation2 sweep,
+    every other test_standard."""
+    if "citation" in ds.name.lower() and not ds.heart:
+        return harness.test_citation2(params, cfg, ds,
+                                      batch_size=args.test_batch_size)
     return harness.test_standard(params, cfg, ds,
                                  batch_size=args.test_batch_size,
-                                 k_list=(20, 50, 100))
+                                 k_list=(20, 50, 100), heart=ds.heart)
 
 
 def train_loop(
@@ -226,7 +227,7 @@ def train_data(args: TrainArgs, cfg: cfg_mod.LPFormerConfig,
         "Hits@50": ResultsLogger(args.runs),
         "Hits@100": ResultsLogger(args.runs),
     }
-    if args.metric == "MRR" or "citation" in ds.name.lower():
+    if args.metric == "MRR" or ds.heart or "citation" in ds.name.lower():
         loggers["MRR"] = ResultsLogger(args.runs)
 
     for run in range(args.runs):

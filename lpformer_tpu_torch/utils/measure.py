@@ -128,6 +128,47 @@ def ddi_link_counts(g, b, c):
                        torch.randint(55, 96, (b,), **d))
 
 
+# Valid slots per link on the citation2-like preset's combined table of 96
+# (presets.py), quantiles at 0, 5, ..., 100% of one batch of 32768 train
+# positives in train mode (masked, attention subsampling): mean 3.87 (a
+# batch of the eval sweep's random negative targets: mean 0.25); chip_smoke
+# prints both (PERF.md section 4)
+CITATION2_COUNT_QUANTILES = (0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 1, 1, 1, 2,
+                             3, 4, 8, 22, 91)
+
+
+def citation2_link_counts(g, b, c):
+    """Valid slots per link at the citation2-like preset's density, drawn
+    on the generator's device from the piecewise-linear inverse of the
+    measured distribution (CITATION2_COUNT_QUANTILES; mean ~4.4, the
+    straight line from the 95% to the 100% point fattens the tail); the
+    caller clamps them to the row's width c."""
+    q = torch.tensor(CITATION2_COUNT_QUANTILES, dtype=torch.float32,
+                     device=g.device)
+    u = torch.rand(b, generator=g, device=g.device) * (len(q) - 1)
+    i = u.floor().long().clamp(max=len(q) - 2)
+    return (q[i] + (u - i) * (q[i + 1] - q[i])).round().int()
+
+
+def citation2_like_dataset(device, seed=0):
+    """The citation2-like preset's synthetic dataset (presets.py) as the
+    citation2 sweep takes it: valid_neg and test_neg replaced by 1000
+    negative target ids per positive from a numpy generator of ``seed``,
+    and named so that run_eval takes test_citation2 (as
+    tests/test_eval_flows.py:68-82 builds its citation2 dataset)."""
+    import numpy as np
+
+    from lpformer_tpu_torch.data.synthetic import synthetic_dataset
+    from lpformer_tpu_torch.presets import CITATION2_LIKE_DATA
+
+    ds = synthetic_dataset(**CITATION2_LIKE_DATA, device=device)
+    rng = np.random.default_rng(seed)
+    ds.valid_neg = rng.integers(0, ds.num_nodes, (len(ds.valid_pos), 1000))
+    ds.test_neg = rng.integers(0, ds.num_nodes, (len(ds.test_pos), 1000))
+    ds.name = "synthetic-citation2-like"
+    return ds
+
+
 def _weights(g, valid, b, c, o, dh, k, dtype, ecls):
     """Keys, PPR values, q and K classes' weights around ``valid``, and
     with ``ecls`` a class per valid slot, mixed; drawn on the generator's
@@ -303,10 +344,12 @@ def _bwd_bound(a, slot_bytes):
                   nv * (40 * dh + 30 * o), kb) + (nv,)
 
 
-def scatter_inputs(dev, seed=0, b=B, c=C, d=O, n=N_ROWS):
+def scatter_inputs(dev, seed=0, b=B, c=C, d=O, n=N_ROWS,
+                   counts=_link_counts):
     """Inputs of scatter_rows_add at the main-path shape: the [B, C]
     context-key cotangent in bf16, live where kernel_inputs' validity is
-    (front-compacted, ~8% of the slots), ids of the live rows drawn with
+    (front-compacted with ``counts``' spread, ~8% of the slots with the
+    collab-like default), ids of the live rows drawn with
     weight rank^-0.8 over the n - 1 real rows (the synthetic graph's
     degree law, so hub rows take many adds), dead rows on the pad row
     n - 1 with zero cotangents. Returns (ids [B, C] int32, ct [B, C, d]
@@ -314,7 +357,7 @@ def scatter_inputs(dev, seed=0, b=B, c=C, d=O, n=N_ROWS):
     import numpy as np
 
     live = kernel_inputs("cpu", torch.float32, seed=seed, b=b, c=c, o=4,
-                         dh=4, k=1)["valid"]
+                         dh=4, k=1, counts=counts)["valid"]
     rng = np.random.default_rng(seed)
     w = np.arange(1, n, dtype=np.float64) ** -0.8
     ids = rng.choice(n - 1, size=(b, c), p=w / w.sum()).astype(np.int32)

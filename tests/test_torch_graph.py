@@ -79,8 +79,16 @@ def test_bundle_refuses_blocked_sizes():
     from lpformer_tpu_torch.graph.containers import CSRGraph
 
     n = 262_144
-    empty = CSRGraph(np.zeros(n + 1, np.int64), np.zeros(0, np.int32),
-                     np.zeros(0, np.float32), n)
+    # each node's PPR row holds itself alone
+    empty = CSRGraph(np.arange(n + 1, dtype=np.int64),
+                     np.arange(n, dtype=np.int32), np.ones(n, np.float32), n)
+    # at this size the bundle takes the tiled BlockedBELL (the JAX
+    # package's rule); only the batch-masked variant (mask_input, whose
+    # BlockedCOO path is not ported) is still refused
+    g = build_graph_bundle(np.zeros((n, 1), np.float32), np.array([0]),
+                           np.array([1]), None, n, empty, device="cpu")
+    assert g.ell is None and g.bbell.kb == 2
     with pytest.raises(NotImplementedError):
         build_graph_bundle(np.zeros((n, 1), np.float32), np.array([0]),
-                           np.array([1]), None, n, empty, device="cpu")
+                           np.array([1]), None, n, empty, mask_input=True,
+                           device="cpu")
