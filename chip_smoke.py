@@ -66,11 +66,13 @@ and the per-link attention op's own path:
      layer's SpMM at [1M, 64], f32 and bf16 gather, through spmm_bbell
      against a single BucketedELL and a static BlockedCOO of the same
      graph (errors and times: an A/B, the layout rule stays the JAX
-     package's); rows 1-2 (bf16, B=32768, C=96, O=dh=64, K=3, drawn with
-     measure.citation2_link_counts) and row 3 (into 1,000,001 rows, its
-     zeroing apart, beside index_add_) against their plain versions; one
-     training step through the kernels against the plain path, then 8
-     steps with the default dropouts (losses finite, rows 1-3 launched
+     package's); rows 1-2 (B=32768, C=96, O=dh=64, K=3: bf16 drawn with
+     measure.citation2_link_counts, then bf16 and f32 with the collab-like
+     spread and bf16 with every slot valid) and row 3 (into 1,000,001
+     rows, its zeroing apart, beside index_add_) against their plain
+     versions; one training step through the kernels against the plain
+     path, then 8 steps with the default dropouts (losses finite, rows 1-3
+     launched
      once per call, stage times, peak memory); run_eval -> test_citation2
      at batch 32768 (every score finite, MRR in [0, 1], the forward
      kernel's launches equal to the score batches, one batch of the sweep
@@ -1149,24 +1151,43 @@ def phase_citation2_spmm(dev, card, ds, dim):
     torch.cuda.empty_cache()
 
 
+# The draws of rows 1-2 at the citation2-like widths: (label, valid-slot
+# counts, dtypes). The preset's density first (timed), then the
+# collab-like spread (3% full links, whose runs cross tiles of 64 slots)
+# in bf16 and f32, and every slot valid in bf16. In f32 with every slot
+# valid (3.1M slots) the slopes of the ReLU and the leaky ReLU flip where
+# their inputs lie within f32 rounding of 0, and the plain version moves
+# as far when its inputs move by one ulp: past BWD_TOL's f32 bounds in
+# both cases (``python -m lpformer_tpu_torch.profile_kernels --kinks``).
+CITATION2_DRAWS = (
+    ("citation2-like", measure.citation2_link_counts, (torch.bfloat16,)),
+    ("citation2-like widths, collab-like spread",
+     measure.collab_link_counts, (torch.bfloat16, torch.float32)),
+    ("citation2-like widths, every slot valid", measure.full_link_counts,
+     (torch.bfloat16,)),
+)
+
+
 def phase_citation2_kernels(dev, card, tabs, cfg, batch, n_rows):
-    """Rows 1-3 at the citation2-like widths (combined table, bf16, B =
-    batch, C = the combined budget, O = dh = dim, K = 3), drawn with the
-    preset's valid-slot counts (measure.citation2_link_counts): the
-    forward and backward against their plain versions (TOL, BWD_TOL), and
-    the scatter over [B, C, dim] into ``n_rows`` rows beside index_add_."""
+    """Rows 1-3 at the citation2-like widths (combined table, B = batch, C
+    = the combined budget, O = dh = dim, K = 3): rows 1-2 drawn as
+    CITATION2_DRAWS lists, forward and backward against their plain
+    versions (TOL, BWD_TOL); the scatter over [B, C, dim] into ``n_rows``
+    rows, at the preset's density, beside index_add_."""
     from lpformer_tpu_torch.ops import scatter
     from lpformer_tpu_torch.profile_kernels import scatter_report
 
     t = tabs["combined"]
-    kw = dict(b=batch, c=cfg.budget_combined, o=cfg.dim, dh=cfg.dim,
-              counts=measure.citation2_link_counts)
-    a = t["inputs"](dev, torch.bfloat16, **kw)
-    _fwd_check("combined", t, a, torch.bfloat16, "citation2-like", (5, 5))
-    a = bwd_inputs(a)
-    _bwd_check_timed("combined", t, a, torch.bfloat16, "citation2-like",
-                     (5, 5))
-    del a
+    for label, counts, dtypes in CITATION2_DRAWS:
+        reps = (5, 5) if counts is measure.citation2_link_counts else (3, 2)
+        for dtype in dtypes:
+            a = t["inputs"](dev, dtype, b=batch, c=cfg.budget_combined,
+                            o=cfg.dim, dh=cfg.dim, counts=counts)
+            _fwd_check("combined", t, a, dtype, label, reps)
+            a = bwd_inputs(a)
+            _bwd_check_timed("combined", t, a, dtype, label, reps)
+            del a
+            torch.cuda.empty_cache()
     ids, ct, n, live = scatter_inputs(dev, b=batch, c=cfg.budget_combined,
                                       d=cfg.dim, n=n_rows,
                                       counts=measure.citation2_link_counts)

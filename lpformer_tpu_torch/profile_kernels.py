@@ -2,9 +2,10 @@
 the card, each against its yardsticks, in CUDA-event time and in traced
 device time.
 
-    python -m lpformer_tpu_torch.profile_kernels [--link]
+    python -m lpformer_tpu_torch.profile_kernels [--link | --kinks]
 
-(``--link``: the per-link attention pair alone.)
+(``--link``: the per-link attention pair alone; ``--kinks``: item 4
+alone.)
 
 1. ``ops/scatter.py:scatter_rows_add`` on chip_smoke.py's main-path inputs
    (``measure.scatter_inputs``: [4096, 128] bf16 cotangent rows, ~8% live,
@@ -29,7 +30,19 @@ device time.
    a yardstick the port never calls), forward and forward + backward,
    traced.
 
-Each result is first held to its plain version (the lookup bit for bit).
+4. With ``--kinks``, ``ops/pe_attention_mixed.py``'s forward and backward
+   at the citation2-like widths (B 32768, C 96, O = dh = 64, K 3) with the
+   collab-like spread and with every slot valid, f32 and bf16: each
+   output's error against the plain version, beside the plain version's
+   own against itself with every valid slot's PPR values one ulp up (how
+   far a rounding-level change moves each output: the ReLU's and the leaky
+   ReLU's slopes flip where their inputs lie within rounding of 0), and
+   dkeys once more with its elements at the leaky ReLU's kink held to an
+   f64 witness (``measure.kink_exempt``). A measurement: nothing is held
+   to a bound.
+
+Items 1-3 hold each result to its plain version first (the lookup bit for
+bit).
 The script calls only functions that earlier trees of the port have too,
 so a copy of this file in such a tree's package measures that tree's
 kernels. Needs a CUDA card.
@@ -293,6 +306,67 @@ def lookup_report(card, label, rows, queries, lanes, vals):
           f"{route_busy:.4f}; bound {bound:.5f} ms ({bound_by})  [{card}]")
 
 
+BWD_NAMES = ("dkeys", "dq", "dw1cat", "dg", "db", "dw2", "dcb", "datt")
+
+
+def _rel(x, y):
+    """(max |x - y| / max |y|, mean |x - y| / mean |y|) in f32."""
+    d, w = (x.float() - y.float()).abs(), y.float().abs()
+    return (float(d.max() / w.max().clamp_min(1e-30)),
+            float(d.mean() / w.mean().clamp_min(1e-30)))
+
+
+def _fwd_errs(x, y):
+    """max |err| of out and m, max |err| and max relative err of l (as
+    chip_smoke.py's forward check: over max(|l|, 1))."""
+    dl = (x[2] - y[2]).abs()
+    return (f"out {float((x[0] - y[0]).abs().max()):.3e}, m "
+            f"{float((x[1] - y[1]).abs().max()):.3e}, l {float(dl.max()):.3e}"
+            f" (rel {float((dl / y[2].abs().clamp_min(1.0)).max()):.3e})")
+
+
+def kink_report(card, dev):
+    """Item 4 of the module's docstring."""
+    from lpformer_tpu_torch.ops import pe_attention_mixed as pam
+
+    fwd_plain = pam.fused_pe_link_attention_mixed_plain
+    bwd_plain = pam.fused_pe_link_attention_mixed_bwd_plain
+    draws = (("collab-like spread", measure.collab_link_counts),
+             ("every slot valid", measure.full_link_counts))
+    for label, counts in draws:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = measure.kernel_inputs(dev, dtype, b=32768, c=96, o=64, dh=64,
+                                      counts=counts)
+            up = torch.tensor(float("inf"), device=dev)
+            nudged = {n: torch.where(a["valid"], torch.nextafter(a[n], up),
+                                     a[n]) for n in ("ps", "pt")}
+            head = (f"kinks {str(dtype)[6:]} {label} (B=32768 C=96 O=64 "
+                    f"dh=64, {int(a['valid'].sum())} valid slots)")
+            got = pam.fused_pe_link_attention_mixed(**a)
+            want = measure.in_link_chunks(fwd_plain, a, 3)
+            moved = measure.in_link_chunks(fwd_plain, dict(a, **nudged), 3)
+            print(f"{head} forward: kernel vs plain {_fwd_errs(got, want)}; "
+                  f"plain one ulp up vs plain {_fwd_errs(moved, want)}")
+            del got, moved
+            a = measure.bwd_inputs(a)
+            got = pam.fused_pe_link_attention_mixed_bwd(**a)
+            want = measure.in_link_chunks(bwd_plain, a, 2)
+            moved = measure.in_link_chunks(bwd_plain, dict(a, **nudged), 2)
+            tol = 1e-4 if dtype == torch.float32 else 2e-2
+            dkeys, n_kink = measure.kink_exempt(a, got[0], want[0], tol)
+            fmt = lambda xs: ", ".join(  # noqa: E731
+                f"{n} {r[0]:.2e}/{r[1]:.2e}" for n, r in zip(
+                    BWD_NAMES, (_rel(x, y) for x, y in zip(xs, want))))
+            print(f"{head} backward (max/mean rel err): kernel vs plain "
+                  f"{fmt(got)}; plain one ulp up vs plain {fmt(moved)}; "
+                  f"kernel dkeys with {n_kink} elements at the kink held to "
+                  f"the f64 witness (past {tol} of max |dkeys| before) "
+                  f"{_rel(dkeys, want[0])[0]:.2e}/"
+                  f"{_rel(dkeys, want[0])[1]:.2e}  [{card}]", flush=True)
+            del a, got, want, moved, dkeys
+            torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
     dev = resolve_device()
@@ -300,6 +374,9 @@ def main(argv=None) -> None:
     if "--link" in args:        # the per-link attention pair alone
         for dtype in (torch.float32, torch.bfloat16):
             link_attention_report(card, dev, dtype)
+        return
+    if "--kinks" in args:
+        kink_report(card, dev)
         return
     os.environ.pop("LPFORMER_FUSED_LOOKUP", None)   # the search route below
     ids, ct, n, live = measure.scatter_inputs(dev)

@@ -103,7 +103,7 @@ def print_wrapper_trace(label, fn, card, calls: int = 10) -> None:
               f"{name[:100]}")
 
 
-def _link_counts(g, b, c):
+def collab_link_counts(g, b, c):
     """Valid slots per link for a front-compacted row of width c, drawn
     with a realistic spread on the generator's device: 10% of the links
     empty, 80% with 1-8 valid slots, 7% with 9-64 and 3% full."""
@@ -114,6 +114,11 @@ def _link_counts(g, b, c):
             u < 0.9, torch.randint(1, 9, (b,), **d), torch.where(
                 u < 0.97, torch.randint(9, 65, (b,), **d),
                 torch.full((b,), c, device=g.device))))
+
+
+def full_link_counts(g, b, c):
+    """Every slot of every link valid: the densest draw, all tiles full."""
+    return torch.full((b,), c, device=g.device)
 
 
 def ddi_link_counts(g, b, c):
@@ -192,7 +197,7 @@ def _weights(g, valid, b, c, o, dh, k, dtype, ecls):
 
 
 def kernel_inputs(dev, dtype, seed=0, b=B, c=C, o=O, dh=DH, k=K,
-                  counts=_link_counts):
+                  counts=collab_link_counts):
     """Inputs of fused_pe_link_attention_mixed, drawn on ``dev`` (the wide
     shapes' inputs take seconds to draw on the host): each link's row
     front-compacted with ``counts``' spread (the collab-like one by
@@ -207,12 +212,13 @@ def classic_kernel_inputs(dev, dtype, seed=0, b=B, widths=CLASSIC_WIDTHS,
                           o=O, dh=DH):
     """Inputs of fused_pe_link_attention (the classic table, with
     ``class_widths``), drawn on ``dev``: each class block of each link
-    front-compacted, its count drawn with ``_link_counts``' spread for that
-    block's width."""
+    front-compacted, its count drawn with ``collab_link_counts``' spread
+    for that block's width."""
     g = torch.Generator(device=dev).manual_seed(seed)
     valid = torch.cat([
         torch.arange(w, device=dev)[None, :]
-        < _link_counts(g, b, w).clamp(max=w)[:, None] for w in widths], dim=1)
+        < collab_link_counts(g, b, w).clamp(max=w)[:, None]
+        for w in widths], dim=1)
     a = _weights(g, valid, b, sum(widths), o, dh, len(widths), dtype,
                  ecls=False)
     a["class_widths"] = tuple(widths)
@@ -311,6 +317,77 @@ def bwd_inputs(a, seed=1):
     return dict(fwd, m=m, l=l, g_out=g_out, delta=delta)
 
 
+# Most dkeys elements past the tolerance that kink_exempt recomputes; more
+# than a handful is not the kink
+KINK_MAX = 1024
+
+
+def kink_exempt(a, got, want, tol):
+    """The combined PE+attention backward's dkeys ``got`` against its plain
+    version's ``want`` on the inputs ``a`` (``bwd_inputs``), with the
+    elements at the leaky ReLU's kink set aside. dkeys carries the slope
+    lrelu'(xj q), 1 or 0.2, so where xj q lies within the rounding of xj
+    of 0 the two sides may take different slopes (xj summed in another
+    order in f32, or a flipped bf16 rounding of h upstream) and that one
+    element differs by 0.8 of its slope term. Each element past tol * max
+    |want| is recomputed in f64 (h rounded to W2f's type, as both sides
+    round it): it is at the kink when |xj q| is within the bound on that
+    rounding (f32: (2 dh + 2) 2^-24, bf16: 2^-8, times |q| and the sum of
+    xj's terms' magnitudes) and ``got`` equals the element under one of
+    the two slopes within tol * max |want|. Returns (``got`` with each
+    kink element replaced by ``want``'s, the number of them); other
+    elements stay as they are, for the caller's check to catch."""
+    err = (got.float() - want.float()).abs()
+    lim = tol * float(want.float().abs().max())
+    idx = (err > lim).flatten().nonzero().flatten()
+    if idx.numel() == 0 or idx.numel() > KINK_MAX:
+        return got, 0
+    _, c, o = a["keys"].shape
+    dh = a["w1"].shape[-1]
+    lb, lc, lo = idx // (c * o), idx // o % c, idx % o
+    e = a["ecls"][lb, lc].long().clamp(0, a["w1"].shape[0] - 1)
+    f = {n: a[n].double()[e] for n in ("w1", "b1", "g", "b", "cbias")}
+    w2 = a["w2f"].double()[e]                               # [n, dh, O]
+    x0, x1 = a["ps"][lb, lc].double(), a["pt"][lb, lc].double()
+
+    def hidden(u, v):
+        pre = (u[:, None] * f["w1"][:, 0] + v[:, None] * f["w1"][:, 1]
+               + f["b1"])
+        xc = pre - pre.mean(-1, keepdim=True)
+        y = (xc / torch.sqrt((xc * xc).mean(-1, keepdim=True) + 1e-5)
+             * f["g"] + f["b"])
+        return torch.relu(y).to(a["w2f"].dtype).double()
+
+    ha, hb = hidden(x0, x1), hidden(x1, x0)
+    keys = a["keys"][lb, lc].double()                       # [n, O]
+    xj = (keys + torch.einsum("nd,ndo->no", ha, w2)
+          + torch.einsum("nd,ndo->no", hb, w2) + f["cbias"])
+    q = a["q"][lb].double()
+    att = a["att"].double().reshape(1, -1)
+    pre = xj * q
+    s = (torch.where(pre >= 0, pre, 0.2 * pre) * att).sum(-1)
+    alpha = (torch.exp(s - a["m"][lb].double())
+             / a["l"][lb].double().clamp_min(1e-16))
+    g_out = a["g_out"][lb].double()
+    dlog = alpha * ((g_out * xj).sum(-1) - a["delta"][lb].double())
+    rows = torch.arange(idx.numel(), device=got.device)
+    qo = q[rows, lo]
+    term = dlog * att[0, lo] * qo
+    base = alpha * g_out[rows, lo]
+    mag = (keys[rows, lo].abs() + torch.einsum(
+        "nd,nd->n", ha.abs() + hb.abs(), w2[rows, :, lo].abs())
+        + f["cbias"][rows, lo].abs())
+    u = 2.0 ** -8 if a["w2f"].dtype == torch.bfloat16 else (
+        (2 * dh + 2) * 2.0 ** -24)
+    g_el = got.flatten()[idx].double()
+    kink = ((pre[rows, lo].abs() <= u * mag * qo.abs())
+            & (torch.minimum((g_el - base - term).abs(),
+                             (g_el - base - 0.2 * term).abs()) <= lim))
+    out = got.flatten().clone()
+    out[idx[kink]] = want.flatten()[idx[kink]].to(got.dtype)
+    return out.view_as(got), int(kink.sum())
+
+
 def bwd_bound_ms(a):
     """Least time for fused_pe_link_attention_mixed_bwd on the inputs ``a``
     (``bwd_inputs``): bytes of the valid mask, q, g_out, m, l, delta and
@@ -345,7 +422,7 @@ def _bwd_bound(a, slot_bytes):
 
 
 def scatter_inputs(dev, seed=0, b=B, c=C, d=O, n=N_ROWS,
-                   counts=_link_counts):
+                   counts=collab_link_counts):
     """Inputs of scatter_rows_add at the main-path shape: the [B, C]
     context-key cotangent in bf16, live where kernel_inputs' validity is
     (front-compacted with ``counts``' spread, ~8% of the slots with the

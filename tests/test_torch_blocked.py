@@ -16,7 +16,6 @@ round the same x once, so the same bound holds. Propagate and scores rtol
 and grads rtol 5e-4 / atol 5e-5 (tests/test_torch_train.py).
 """
 import dataclasses
-import time
 
 import jax
 import jax.numpy as jnp
@@ -371,10 +370,8 @@ def test_layout_selection_follows_jax():
     e = rng.integers(0, n, (20_000, 2))
     e = e[e[:, 0] != e[:, 1]]
     x = np.zeros((n, 1), np.float32)
-    t0 = time.perf_counter()
     g = build_graph_bundle(x, e[:, 0], e[:, 1], None, n, _self_ppr(n),
                            adj_cap=8, ppr_cap=1, device="cpu")
-    assert time.perf_counter() - t0 < 10.0
     assert g.ell is None and g.blk is None and g.bbell.kb == 2
     assert g.bbell.block == 131_072 and g.bbell.num_edges == g.num_edges
     assert g.bbell.slot_total >= g.num_edges

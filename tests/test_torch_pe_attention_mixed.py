@@ -23,6 +23,9 @@ B, C, O, DH, CT = 6, 16, 16, 16, 8
 # trans_layers=2 at dim 128; widths of no power of two, the last with a
 # ragged 4-column group (O % 4 != 0)
 WIDTHS = [(256, 256), (256, 128), (72, 40), (70, 36)]
+# ... and on the card also the citation2-like preset's O = dh = 64, where a
+# tile holds 64 slots
+CARD_WIDTHS = WIDTHS + [(64, 64)]
 
 
 def _inputs(K, seed, mode, dtype=np.float32, o=O, dh=DH):
@@ -207,7 +210,7 @@ def test_kernel_matches_plain_on_card(bf16, case):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["mixed", "class TS+1", "all dead"])
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("o,dh", WIDTHS)
+@pytest.mark.parametrize("o,dh", CARD_WIDTHS)
 def test_kernel_matches_plain_on_card_at_widths(o, dh, bf16, case):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")

@@ -22,10 +22,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_pe_attention_mixed import CT, WIDTHS, _inputs, _torch_args
+from test_torch_pe_attention_mixed import (
+    CARD_WIDTHS, CT, WIDTHS, _inputs, _torch_args,
+)
 
 from lpformer_tpu.ops.pallas import pe_attention_mixed as jpam
 from lpformer_tpu_torch.ops import pe_attention_mixed as tpam
+from lpformer_tpu_torch.utils import measure
 
 DIFF = ("keys", "q", "w1", "b1", "g", "b", "w2f", "cbias", "att", "bias")
 ORDER = ("keys", "ps", "pt", "valid", "ecls", "q", "w1", "b1", "g", "b",
@@ -200,7 +203,7 @@ def test_bwd_input_checks(name, bad, err):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("o,dh", [(16, 16)] + WIDTHS)
+@pytest.mark.parametrize("o,dh", [(16, 16)] + CARD_WIDTHS)
 def test_kernel_matches_plain_on_card(bf16, o, dh):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -224,3 +227,103 @@ def test_kernel_matches_plain_on_card(bf16, o, dh):
                                        atol=tol / 10)
         else:
             assert_close_card(x, y, tol)
+
+
+# The citation2-like widths at the preset's batch (B 32768, C 96, O = dh =
+# 64, K 3), as chip_smoke.py checks them: forward (max |err| of out and m,
+# max relative err of l, mean |err| of out) and backward (per output, max
+# |err| / max |plain| and mean |err| / mean |plain|), chip_smoke.py's TOL
+# and BWD_TOL
+CITATION2_FWD_TOL = {False: (1e-4, 1e-6), True: (1e-2, 1e-4)}
+CITATION2_BWD_TOL = {False: (1e-4, 1e-5), True: (2e-2, 2e-3)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,bf16", [("collab", False), ("collab", True),
+                                         ("full", True)])
+def test_kernel_pair_matches_plain_on_card_at_citation2_widths(counts, bf16):
+    """The forward and backward kernels at the citation2-like widths with
+    the collab-like spread (3% full links: runs across tiles of 64 slots)
+    and with every slot valid, against their plain versions, as
+    chip_smoke.py draws them (CITATION2_DRAWS there says why every slot
+    valid runs in bf16 only)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    draw = {"collab": measure.collab_link_counts,
+            "full": measure.full_link_counts}[counts]
+    a = measure.kernel_inputs(torch.device("cuda"),
+                              torch.bfloat16 if bf16 else torch.float32,
+                              b=32768, c=96, o=64, dh=64, counts=draw)
+    got = tpam.fused_pe_link_attention_mixed(**a)
+    want = measure.in_link_chunks(tpam.fused_pe_link_attention_mixed_plain,
+                                  a, 3)
+    tol, tol_mean = CITATION2_FWD_TOL[bf16]
+    assert float((got[0] - want[0]).abs().max()) <= tol
+    assert float((got[1] - want[1]).abs().max()) <= tol
+    assert float(((got[2] - want[2]).abs()
+                  / want[2].abs().clamp_min(1.0)).max()) <= tol
+    assert float((got[0] - want[0]).abs().mean()) <= tol_mean
+    a = measure.bwd_inputs(a)
+    got = tpam.fused_pe_link_attention_mixed_bwd(**a)
+    want = measure.in_link_chunks(
+        tpam.fused_pe_link_attention_mixed_bwd_plain, a, 2)
+    tol, tol_mean = CITATION2_BWD_TOL[bf16]
+    for name, x, y in zip(("dkeys", "dq", "dw1cat", "dg", "db", "dw2", "dcb",
+                           "datt"), got, want):
+        assert x.dtype == y.dtype, name
+        d, w = (x.float() - y.float()).abs(), y.float().abs()
+        assert float(d.max() / w.max()) <= tol, (name, float(d.max()))
+        assert float(d.mean() / w.mean()) <= tol_mean, (name, float(d.mean()))
+
+
+def _plain_xj(a, monkeypatch):
+    """The plain forward's xj [B, C, O] on the inputs ``a``."""
+    seen = []
+    attend = tpam.attend
+
+    def keep(xj, *rest):
+        seen.append(xj)
+        return attend(xj, *rest)
+
+    monkeypatch.setattr(tpam, "attend", keep)
+    tpam.fused_pe_link_attention_mixed_plain(**a)
+    monkeypatch.setattr(tpam, "attend", attend)
+    return seen[0]
+
+
+def test_kink_exempt_holds_only_slope_flips_to_the_witness(monkeypatch):
+    """Two backward passes whose xj differ by a few ulps at one element,
+    there on either side of the leaky ReLU's kink, differ in that dkeys
+    element by 0.8 of its slope term: kink_exempt finds that one element
+    and holds it to the witness, and leaves an element moved elsewhere."""
+    a = measure.kernel_inputs(torch.device("cpu"), torch.float32, b=8, c=16,
+                              o=16, dh=16)
+    b0 = int(a["valid"][:, 0].nonzero()[0])
+    o0 = int((a["att"][0] * a["q"][b0]).abs().argmax())
+    keys = {}
+    for sign in (1.0, -1.0):
+        k = a["keys"].clone()
+        k[b0, 0, o0] -= _plain_xj(a, monkeypatch)[b0, 0, o0]
+        # step the key an ulp at a time until xj lies on this side of 0
+        for _ in range(64):
+            x = float(_plain_xj(dict(a, keys=k), monkeypatch)[b0, 0, o0])
+            if (x > 0) if sign > 0 else (x < 0):
+                break
+            k[b0, 0, o0] = torch.nextafter(k[b0, 0, o0],
+                                           torch.tensor(sign * 1e30))
+        assert abs(x) < 1e-6
+        keys[sign] = k
+    bi = measure.bwd_inputs(dict(a, keys=keys[1.0]))
+    want = tpam.fused_pe_link_attention_mixed_bwd_plain(**bi)[0]
+    got = tpam.fused_pe_link_attention_mixed_bwd_plain(
+        **dict(bi, keys=keys[-1.0]))[0]
+    lim = 1e-4 * float(want.abs().max())
+    assert float((got - want).abs()[b0, 0, o0]) > lim   # the slope flipped
+    got[(b0 + 1) % 8, 0, 0] += 1.0                     # not at a kink
+    moved = (got - want).abs() > lim
+    out, n = measure.kink_exempt(bi, got, want, 1e-4)
+    assert n == 1
+    assert float(out[b0, 0, o0]) == float(want[b0, 0, o0])
+    still = (out - want).abs() > lim
+    assert int(still.sum()) == int(moved.sum()) - 1
+    assert bool((out[still] == got[still]).all())
