@@ -66,7 +66,10 @@ and the per-link attention op's own path:
      layer's SpMM at [1M, 64], f32 and bf16 gather, through spmm_bbell
      against a single BucketedELL and a static BlockedCOO of the same
      graph (errors and times: an A/B, the layout rule stays the JAX
-     package's); rows 1-2 (B=32768, C=96, O=dh=64, K=3: bf16 drawn with
+     package's); the mask_input arm: a batch of 32768 train links masked
+     out of the propagation weights (mask_edge_weights, gcn_norm_device),
+     the BlockedCOO re-weighted through its edge ids against the
+     BucketedELL re-weighted through its slots' edge ids; rows 1-2 (B=32768, C=96, O=dh=64, K=3: bf16 drawn with
      measure.citation2_link_counts, then bf16 and f32 with the collab-like
      spread and bf16 with every slot valid) and row 3 (into 1,000,001
      rows, its zeroing apart, beside index_add_) against their plain
@@ -77,6 +80,22 @@ and the per-link attention op's own path:
      at batch 32768 (every score finite, MRR in [0, 1], the forward
      kernel's launches equal to the score batches, one batch of the sweep
      against the plain path, propagate ms, links/s);
+ 10. the pubmed-like preset (presets.py: configs/pubmed-existing.json, f32,
+     the classic table of 32 | 96 | 96, batch 1024, mask_input; a
+     synthetic graph of Pubmed's size): the BucketedELL with slot edge ids
+     and edge_rank; one training step (two propagations, the positive
+     half's re-weighted) through the kernels against the plain path;
+     train_loop for 2 epochs with steps_per_call 4, grad_accum 2,
+     save_every 1 and save_as (losses finite, metrics in [0, 1], rows 3-5
+     launched as the path's calls say); a resume from its
+     .latest.ckpt for epoch 3 (the state restored bit for bit); stage
+     times of the step and peak memory;
+ 11. on the ddi-like dataset: one step on the classic table (128 | 320 |
+     320, O = dh = 256, bf16) where the auto rule turns the pairwise
+     block's remat on, against remat off with the dropouts on and the same
+     generator seed (row 4 launched once more a forward under remat), and
+     a grad_accum=2 step of the combined table against the monolithic one
+     (rows 1-3), each pair's ms and peak memory;
 then a "kernels:" summary line and a JSON line of per-kernel numbers (each
 kernel's launches from its path's run: rows 1-3 the collab-like combined
 train_loop, rows 4-5 the classic one, rows 6-7 phase 7, row 8 phase 6),
@@ -130,6 +149,19 @@ BWD_TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (2e-2, 2e-3)}
 # att_layers/0/lin_l/w (the weight that makes q), to 5e-3 at the ddi-like
 # preset.
 STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-3, 2e-2
+# The same in f32 (the pubmed-like step): only the order of the f32 sums
+# differs, so BWD_TOL's f32 max bound holds for the loss's |difference|
+# and for every leaf's relative L2 error.
+STEP_F32_LOSS_TOL, STEP_F32_GRAD_TOL = 1e-4, 1e-4
+# grad_accum 2 against 1 in f32 (the ddi-like combined step), per leaf:
+# the micro-batches' GEMMs take half the rows, and cuBLAS rounds a row of
+# an [M/2, K] product otherwise than the same row of the [M, K] one (the
+# phase logs by how much). The leaves whose gradient cancels across a
+# link's slots (att_layers/0/att, lin_l: |g| ~1e-6 against 1e-2 to 1
+# elsewhere) carry that rounding at ~6e-4 through the plain versions as
+# through the kernels (PERF.md §6); a wrong denominator or a lost
+# micro-batch moves every leaf by O(1e-1).
+STEP_F32_ACCUM_GRAD_TOL = 2e-3
 # The citation2-like SpMM layouts against the single BucketedELL, max abs
 # error: every arm sums the same products in f32 (after the same bf16
 # rounding of x with bf16 gather), in other orders; outputs are O(1)
@@ -872,15 +904,38 @@ def _fresh_params(dev, cfg, in_dim):
     return p
 
 
-def _step_pair(dev, ds, layout, tabs, cfg, batch):
+def _compare_steps(label, a, b, leaves_with_path, loss_tol=STEP_LOSS_TOL,
+                   grad_tol=STEP_GRAD_TOL):
+    """(loss, grads) of step ``a`` against step ``b``: the loss's |diff|
+    and every leaf's ||a - b|| / ||b|| within the tolerances, a's grads
+    finite; logs one line and returns whether the two are bit-equal."""
+    dl = abs(float(a[0]) - float(b[0]))
+    rel = [float((x - y).norm() / y.norm().clamp_min(1e-30))
+           for x, y in zip(a[1], b[1])]
+    worst = leaves_with_path[rel.index(max(rel))][0]
+    equal = bool(torch.equal(a[0], b[0])) and all(
+        torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    log(f"{label}: loss {float(a[0]):.6f} vs {float(b[0]):.6f} (|diff| "
+        f"{dl:.2e}, tol {loss_tol}); grad leaves {len(rel)}, max rel L2 err "
+        f"{max(rel):.2e} at {'/'.join(map(str, worst))} (median "
+        f"{statistics.median(rel):.2e}, tol {grad_tol}); bit-equal {equal}")
+    if (dl > loss_tol or max(rel) > grad_tol
+            or not all(bool(torch.isfinite(x).all()) for x in a[1])):
+        raise AssertionError(f"{label} disagree")
+    return equal
+
+
+def _step_pair(dev, ds, layout, tabs, cfg, batch, mask_input=False):
     """One training step, dropout off and fixed negatives, through the
     kernels and through the plain versions: the loss and every gradient
-    leaf must agree (STEP_LOSS_TOL, STEP_GRAD_TOL)."""
+    leaf must agree (STEP_LOSS_TOL, STEP_GRAD_TOL; in f32 the STEP_F32
+    pair). With ``mask_input`` the step propagates twice, the positive
+    half over the batch-masked weights."""
     from lpformer_tpu_torch.ops import masking
     from lpformer_tpu_torch.train import optim, step as step_mod
 
     nodrop = dataclasses.replace(cfg, dropout=0.0, gnn_drop=0.0,
-                                 att_drop=0.0)
+                                 att_drop=0.0, feat_drop=0.0, pred_drop=0.0)
     params = _fresh_params(dev, nodrop, int(ds.graph.x.shape[1]))
     leaves = optim.tree_leaves(params)
     pos = torch.as_tensor(ds.train_pos[:batch]).to(dev)
@@ -889,10 +944,14 @@ def _step_pair(dev, ds, layout, tabs, cfg, batch):
     w = torch.ones(batch, device=dev)
     mr = masking.batch_mask_ranks(ds.graph.adj_rows, pos[:, 0], pos[:, 1],
                                   ds.mask_mult_device, weight=w)
+    prop_w = (masking.mask_edge_weights(mr, ds.graph.edge_rank,
+                                        (ds.graph.edge_w > 0).float())
+              if mask_input else None)
 
     def loss_and_grads():
         loss = step_mod.loss_fn(params, nodrop, ds.graph, pos[:, 0],
-                                pos[:, 1], neg[0], neg[1], w, mr, None)
+                                pos[:, 1], neg[0], neg[1], w, mr, None,
+                                prop_w, mask_input)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     loss_k, grads_k = loss_and_grads()
@@ -901,26 +960,21 @@ def _step_pair(dev, ds, layout, tabs, cfg, batch):
         loss_p, grads_p = loss_and_grads()
     finally:
         restore()
-    dl = abs(float(loss_k) - float(loss_p))
-    rel = [float((a - b).norm() / b.norm().clamp_min(1e-30))
-           for a, b in zip(grads_k, grads_p)]
-    worst = [p for p, _ in optim.tree_leaves_with_path(params)][
-        rel.index(max(rel))]
-    finite = all(bool(torch.isfinite(g).all()) for g in grads_k)
-    log(f"train step {layout} (dim {cfg.dim}, batch {batch}) kernels vs "
-        f"plain: loss {float(loss_k):.6f} vs {float(loss_p):.6f} (|diff| "
-        f"{dl:.2e}, tol {STEP_LOSS_TOL}); grad leaves {len(rel)}, max rel L2 "
-        f"err {max(rel):.2e} at {'/'.join(map(str, worst))} (median "
-        f"{statistics.median(rel):.2e}, tol {STEP_GRAD_TOL})")
-    if dl > STEP_LOSS_TOL or max(rel) > STEP_GRAD_TOL or not finite:
-        raise AssertionError("training step through the kernels disagrees "
-                             "with the plain path")
+    _compare_steps(
+        f"train step {layout} (dim {cfg.dim}, batch {batch}, "
+        f"{cfg.matmul_dtype}{', mask_input' if mask_input else ''}) kernels "
+        f"vs plain", (loss_k, grads_k), (loss_p, grads_p),
+        optim.tree_leaves_with_path(params),
+        *((STEP_LOSS_TOL, STEP_GRAD_TOL) if cfg.mm_dtype
+          else (STEP_F32_LOSS_TOL, STEP_F32_GRAD_TOL)))
 
 
-def _timed_steps(dev, card, ds, layout, cfg, batch, steps, skip=2):
-    """``steps`` training steps with the default dropouts through the
+def _timed_steps(dev, card, ds, layout, cfg, batch, steps, skip=2,
+                 mask_input=False):
+    """``steps`` training steps with the preset's dropouts through the
     functions train_loop's step runs (masking, loss_fn, backward, the
-    fused optimizer), CUDA events around the forward, backward and
+    fused optimizer; with ``mask_input`` the masked propagation weights
+    and two propagations), CUDA events around the forward, backward and
     optimizer; logs the medians over the steps after the first ``skip``
     and the peak memory, and returns every step's loss."""
     from lpformer_tpu_torch.ops import masking
@@ -932,6 +986,7 @@ def _timed_steps(dev, card, ds, layout, cfg, batch, steps, skip=2):
     gen = torch.Generator(device=dev).manual_seed(0)
     w = torch.ones(batch, device=dev)
     mult = ds.mask_mult_device
+    bin_w = (ds.graph.edge_w > 0).float()
     torch.cuda.reset_peak_memory_stats()
     times, losses = [], []
     for i in range(steps):
@@ -943,8 +998,11 @@ def _timed_steps(dev, card, ds, layout, cfg, batch, steps, skip=2):
                              device=dev, dtype=links.dtype)
         mr = masking.batch_mask_ranks(ds.graph.adj_rows, links[:, 0],
                                       links[:, 1], mult, weight=w)
+        prop_w = (masking.mask_edge_weights(mr, ds.graph.edge_rank, bin_w)
+                  if mask_input else None)
         loss = step_mod.loss_fn(params, cfg, ds.graph, links[:, 0],
-                                links[:, 1], negs[0], negs[1], w, mr, gen)
+                                links[:, 1], negs[0], negs[1], w, mr, gen,
+                                prop_w, mask_input)
         ev[1].record()
         loss.backward()
         ev[2].record()
@@ -1102,13 +1160,18 @@ def phase_citation2_build(dev):
     return ds
 
 
-def phase_citation2_spmm(dev, card, ds, dim):
+def phase_citation2_spmm(dev, card, ds, dim, batch):
     """One GCN layer's SpMM on the citation2-like graph at [N, dim], f32
     and with bf16 gather, through spmm_bbell, against a single BucketedELL
     and a static BlockedCOO built over the same graph for this check only
-    (an A/B of the layouts; the layout rule stays the JAX package's)."""
+    (an A/B of the layouts; the layout rule stays the JAX package's). Then
+    the mask_input arm: one batch of ``batch`` train links masked out of
+    the propagation weights (mask_edge_weights), renormalised on the card
+    (gcn_norm_device), through the BlockedCOO re-weighted by its edge ids
+    (the JAX package's big-graph mask_input layout) against the
+    BucketedELL re-weighted by its slots' edge ids."""
     from lpformer_tpu_torch.graph.containers import BlockedCOO, BucketedELL
-    from lpformer_tpu_torch.ops import spmm
+    from lpformer_tpu_torch.ops import masking, spmm
 
     g = ds.graph
     s, d, w = (g.edge_src.cpu().numpy(), g.edge_dst.cpu().numpy(),
@@ -1116,38 +1179,59 @@ def phase_citation2_spmm(dev, card, ds, dim):
     t0 = time.perf_counter()
     bell = BucketedELL.from_sorted_coo(s, d, g.num_nodes, w_norm=w).to(dev)
     blk = BlockedCOO.from_coo(s, d, g.num_nodes, w_norm=w,
-                              with_edge_ids=False).to(dev)
+                              with_edge_ids=True).to(dev)
     log(f"SpMM A/B layouts built in {time.perf_counter() - t0:.1f} s: "
-        f"BucketedELL {len(bell.caps)} tiers {bell.slot_total} slots, "
-        f"BlockedCOO {blk.slot_total} slots, BlockedBELL "
-        f"{g.bbell.slot_total} slots")
+        f"BucketedELL {len(bell.caps)} tiers {bell.slot_total} slots (with "
+        f"edge ids), BlockedCOO {blk.slot_total} slots (with edge ids), "
+        f"BlockedBELL {g.bbell.slot_total} slots")
     x = torch.randn(g.num_nodes, dim, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(0))
-    for gd in (None, torch.bfloat16):
-        arms = {
-            "BlockedBELL": lambda: spmm.spmm_bbell(g.bbell, x, diag=g.w_diag,
-                                                   gather_dtype=gd),
-            "BucketedELL": lambda: spmm.spmm_bell(bell, x, diag=g.w_diag,
+
+    def ab(label, arms, ref):
+        for gd in (None, torch.bfloat16):
+            with torch.no_grad():
+                outs = {k: f(gd) for k, f in arms.items()}
+                errs = {k: float((v - outs[ref]).abs().max())
+                        for k, v in outs.items() if k != ref}
+                ms = {k: time_ms(lambda: f(gd), 3, 1)
+                      for k, f in arms.items()}
+            log(f"SpMM{label} [{g.num_nodes}, {dim}] "
+                f"{'f32' if gd is None else 'bf16'} gather: max abs err vs "
+                f"{ref} " + ", ".join(f"{k} {e:.3e}" for k, e in errs.items())
+                + f" (tol {SPMM_TOL}); " + ", ".join(
+                    f"{k} {v:.3f} ms" for k, v in ms.items()) + f"  [{card}]")
+            if max(errs.values()) > SPMM_TOL or not all(
+                    bool(torch.isfinite(v).all()) for v in outs.values()):
+                raise AssertionError(f"the SpMM{label} layouts disagree")
+            del outs
+
+    ab("", {
+        "BlockedBELL": lambda gd: spmm.spmm_bbell(g.bbell, x, diag=g.w_diag,
                                                   gather_dtype=gd),
-            "BlockedCOO": lambda: spmm.spmm_blocked(
-                blk, None, x, diag=g.w_diag, gather_dtype=gd),
-        }
-        with torch.no_grad():
-            outs = {k: f() for k, f in arms.items()}
-            ref = outs["BucketedELL"]
-            errs = {k: float((v - ref).abs().max()) for k, v in outs.items()
-                    if k != "BucketedELL"}
-            ms = {k: time_ms(f, 3, 1) for k, f in arms.items()}
-        log(f"SpMM [{g.num_nodes}, {dim}] {'f32' if gd is None else 'bf16'}"
-            f" gather: max abs err vs BucketedELL " + ", ".join(
-                f"{k} {e:.3e}" for k, e in errs.items())
-            + f" (tol {SPMM_TOL}); " + ", ".join(
-                f"{k} {v:.3f} ms" for k, v in ms.items()) + f"  [{card}]")
-        if max(errs.values()) > SPMM_TOL or not all(
-                bool(torch.isfinite(v).all()) for v in outs.values()):
-            raise AssertionError("the SpMM layouts disagree")
-        del outs, ref
-    del bell, blk, x
+        "BucketedELL": lambda gd: spmm.spmm_bell(bell, None, x,
+                                                 diag=g.w_diag,
+                                                 gather_dtype=gd),
+        "BlockedCOO": lambda gd: spmm.spmm_blocked(
+            blk, None, x, diag=g.w_diag, gather_dtype=gd),
+    }, "BucketedELL")
+
+    links = torch.as_tensor(ds.train_pos[:batch]).to(dev)
+    mr = masking.batch_mask_ranks(g.adj_rows, links[:, 0], links[:, 1],
+                                  ds.mask_mult_device,
+                                  weight=torch.ones(batch, device=dev))
+    prop_w = masking.mask_edge_weights(mr, g.edge_rank,
+                                       (g.edge_w > 0).float())
+    w_norm, diag = spmm.gcn_norm_device(g.edge_src, g.edge_dst, prop_w,
+                                        g.num_nodes)
+    log(f"mask_input arm: {int((prop_w == 0).sum())} of {g.num_edges} "
+        f"propagation edges masked by a batch of {batch} train links")
+    ab(" masked, re-weighted", {
+        "BlockedCOO": lambda gd: spmm.spmm_blocked(
+            blk, w_norm, x, diag=diag, gather_dtype=gd),
+        "BucketedELL": lambda gd: spmm.spmm_bell(bell, w_norm, x, diag=diag,
+                                                 gather_dtype=gd),
+    }, "BucketedELL")
+    del bell, blk, x, w_norm, diag, prop_w
     torch.cuda.empty_cache()
 
 
@@ -1301,6 +1385,324 @@ def phase_citation2_train(dev, card, ds, tabs, cfg, batch, steps=8):
         raise AssertionError(f"launch counts {launches} != {want}")
 
 
+def _snapshot(state):
+    """Copies on the host of a training state's parameter leaves and
+    optimizer state."""
+    from lpformer_tpu_torch.train import optim
+
+    return ([x.detach().to("cpu", copy=True)
+             for x in optim.tree_leaves(state.params)],
+            {k: v.to("cpu", copy=True) for k, v in state.opt_state.items()})
+
+
+def _same_snapshot(a, b):
+    return (len(a[0]) == len(b[0])
+            and all(torch.equal(x, y) for x, y in zip(a[0], b[0]))
+            and sorted(a[1]) == sorted(b[1])
+            and all(torch.equal(a[1][k], b[1][k]) for k in a[1]))
+
+
+def phase_pubmed(dev, card, tabs):
+    """Phase 10, the pubmed-like preset (presets.py: f32, classic table of
+    C = 224, batch 1024, mask_input): its propagation layout must be the
+    BucketedELL with slot edge ids; one training step through the kernels
+    against the plain path (double propagation); train_loop for 2 epochs
+    with the preset's dropouts, steps_per_call=4, grad_accum=2,
+    save_every=1 and save_as, with rows 3-5 launched as the path's calls
+    say; then a resume from <name>.latest.ckpt for epoch 3, which must
+    start from the saved state bit for bit; then the timed steps."""
+    import tempfile
+
+    from lpformer_tpu_torch import presets
+    from lpformer_tpu_torch.graph.containers import BucketedELL
+    from lpformer_tpu_torch.train import step as step_mod, trainer
+    from lpformer_tpu_torch.utils import checkpoint as ckpt
+    from lpformer_tpu_torch.utils.logger import ResultsLogger
+
+    cfg, batch = presets.PUBMED_LIKE_CONFIG, presets.PUBMED_LIKE_BATCH
+    ds = load_dataset(dev, presets.PUBMED_LIKE_DATA)
+    g = ds.graph
+    log(f"pubmed-like layout: {type(g.ell).__name__}, "
+        f"{None if g.ell is None else g.ell.slot_total} slots in "
+        f"{None if g.ell is None else len(g.ell.caps)} tiers, slot edge ids "
+        f"{g.ell is not None and g.ell.slot_edges is not None}, blk "
+        f"{g.blk is not None}, bbell {g.bbell is not None}; edge_rank "
+        f"{None if g.edge_rank is None else len(g.edge_rank)} of "
+        f"{g.num_edges} edges; {_device_bytes(g) / 2**20:.1f} MiB on the "
+        f"card")
+    if not (isinstance(g.ell, BucketedELL) and g.ell.slot_edges is not None
+            and g.blk is None and g.bbell is None and g.edge_rank is not None
+            and len(g.edge_rank) == g.num_edges):
+        raise AssertionError("the pubmed-like bundle must carry the "
+                             "BucketedELL with slot edge ids and edge_rank")
+    _step_pair(dev, ds, "classic", tabs, cfg, batch, mask_input=True)
+
+    t, epochs, k, ga = tabs["classic"], 2, 4, 2
+    steps = epochs * math.ceil(len(ds.train_pos) / batch)
+    splits = [ds.train_pos_val, ds.valid_pos, ds.test_pos, ds.valid_neg,
+              ds.test_neg]
+    recorded = {}
+    real_make = step_mod.make_train_step
+
+    def spy(*a, **kw):
+        fn = real_make(*a, **kw)
+
+        def call(state, *rest):
+            if "first" not in recorded:
+                recorded["first"] = _snapshot(state)
+            out = fn(state, *rest)
+            recorded["last"] = out[0]
+            return out
+        return call
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = trainer.TrainArgs(
+            epochs=epochs, batch_size=batch, eval_steps=1, seed=0,
+            lr=presets.PUBMED_LIKE_LR, l2=presets.PUBMED_LIKE_L2,
+            mask_input=True, steps_per_call=k, grad_accum=ga, save_every=1,
+            save_as="pubmed-like", data_name="pubmed-like",
+            checkpoint_dir=tmp, verbose=False)
+        name = os.path.join(tmp, args.data_name, args.save_as)
+        eval_batches = sum(-(-len(x) // args.test_batch_size)
+                           for x in splits)
+        loggers = {n: ResultsLogger(1) for n in
+                   ("Hits@20", "Hits@50", "Hits@100", "MRR")}
+        counters = _counters(tabs)
+        for f in counters.values():
+            f.launches = 0
+        losses = []
+        step_mod.make_train_step = spy
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            trainer.train_loop(args, cfg, ds, loggers, 0, name,
+                               step_losses=losses)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            launches = {n: f.launches for n, f in counters.items()}
+            saved_state = _snapshot(recorded.pop("last"))
+            recorded.clear()
+            files = sorted(os.listdir(os.path.dirname(name)))
+            latest = name + ".latest.ckpt"
+            on_disk = ckpt.load_checkpoint(latest)
+            from_file = _snapshot(step_mod.TrainState(
+                on_disk["params"], on_disk["opt_state"], 0))
+
+            resumed = dataclasses.replace(args, epochs=epochs + 1,
+                                          resume=latest)
+            res_losses = []
+            res_loggers = {n: ResultsLogger(1) for n in loggers}
+            t0 = time.perf_counter()
+            trainer.train_loop(resumed, cfg, ds, res_loggers, 0,
+                               step_losses=res_losses)
+            torch.cuda.synchronize()
+            res_wall = time.perf_counter() - t0
+        finally:
+            step_mod.make_train_step = real_make
+    want = dict.fromkeys(counters, 0)
+    want[t["fwd_entry"][0]] = (2 * ga * steps
+                               + eval_batches * epochs) * cfg.trans_layers
+    want[t["bwd_entry"][0]] = 2 * ga * steps * cfg.trans_layers
+    want["scatter_rows_add"] = 2 * ga * steps * cfg.trans_layers
+    lv = torch.cat([x.reshape(-1) for x in losses]).cpu()
+    live = lv[lv != 0]
+    rv = torch.cat([x.reshape(-1) for x in res_losses]).cpu()
+    res = {n: v.results[0][-1] for n, v in loggers.items()}
+    log(f"train_loop pubmed-like (mask_input, steps_per_call {k}, grad_accum "
+        f"{ga}): {epochs} epochs, {len(live)} steps of {batch} in "
+        f"{len(losses)} calls, {wall:.1f} s wall incl. {epochs} "
+        f"test_standard and checkpoints {files}; loss first "
+        f"{float(live[0]):.4f} last {float(live[-1]):.4f}; " + ", ".join(
+            f"{n} {v[0]:.4f}/{v[1]:.4f}/{v[2]:.4f}" for n, v in res.items())
+        + f"; peak memory {peak:.2f} GiB; launches {launches} (want "
+        f"{want})  [{card}]")
+    if len(live) != steps or not bool(torch.isfinite(lv).all()):
+        raise AssertionError("a pubmed-like training loss is not finite, or "
+                             "a live step is missing")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
+    for n, v in res.items():
+        if not all(0.0 <= x <= 1.0 for x in v):
+            raise AssertionError(f"{n} out of range: {v}")
+    if files != ["pubmed-like.ckpt", "pubmed-like.latest.ckpt"]:
+        raise AssertionError(f"checkpoint files {files}")
+    first = recorded.get("first")
+    ok_ = (first is not None and _same_snapshot(from_file, saved_state)
+           and _same_snapshot(first, saved_state))
+    res_epochs = len(res_loggers["MRR"].results[0])
+    log(f"resume from {os.path.basename(latest)} (epoch "
+        f"{int(on_disk['epoch'])}, step {int(on_disk['step'])}): params and "
+        f"optimizer state equal to the saved ones bit for bit: {ok_}; "
+        f"epoch {epochs + 1} alone ran ({len(rv[rv != 0])} steps, "
+        f"{res_epochs} eval) in {res_wall:.1f} s wall incl. one "
+        f"test_standard; losses finite {bool(torch.isfinite(rv).all())}")
+    if not ok_ or int(on_disk["epoch"]) != epochs:
+        raise AssertionError("the resumed state differs from the saved one")
+    if (len(rv[rv != 0]) != steps // epochs or res_epochs != 1
+            or not bool(torch.isfinite(rv).all())):
+        raise AssertionError("the resumed run did not run epoch 3 alone")
+    _timed_steps(dev, card, ds, "classic (pubmed-like, mask_input)", cfg,
+                 batch, 10, mask_input=True)
+    del ds
+    torch.cuda.empty_cache()
+
+
+def _timed_call(fn):
+    """fn() with CUDA events and the peak memory: (result, ms, GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    out = fn()
+    e1.record()
+    e1.synchronize()
+    return out, e0.elapsed_time(e1), torch.cuda.max_memory_allocated() / 2**30
+
+
+def phase_ddi_remat(dev, card, ds, tabs):
+    """Phase 11a, the ddi-like classic table (C = 768, O = dh = 256, bf16,
+    dataset of the ddi-like preset): one training step where the auto
+    rule turns the pairwise block's remat on, against remat_pairwise=False
+    from the same generator seed with the dropouts on; row 4 launches
+    twice a layer and a forward under remat."""
+    from lpformer_tpu_torch import presets
+    from lpformer_tpu_torch.models import link_transformer as lt
+    from lpformer_tpu_torch.ops import masking
+    from lpformer_tpu_torch.train import optim, step as step_mod
+
+    cfg, batch = presets.DDI_LIKE_CLASSIC_CONFIG, presets.DDI_LIKE_BATCH
+    c = sum(cfg.context.class_budgets)
+    if not lt.remat_pairwise_on(cfg, batch, c):
+        raise AssertionError("the auto rule must turn remat on here")
+    t = tabs["classic"]
+    pos = torch.as_tensor(ds.train_pos[:batch]).to(dev)
+    w = torch.ones(batch, device=dev)
+    mr = masking.batch_mask_ranks(ds.graph.adj_rows, pos[:, 0], pos[:, 1],
+                                  ds.mask_mult_device, weight=w)
+    out = {}
+    for remat in (True, False):
+        rc = dataclasses.replace(cfg, remat_pairwise=remat)
+        params = _fresh_params(dev, rc, int(ds.graph.x.shape[1]))
+        leaves = optim.tree_leaves(params)
+
+        def step():
+            gen = torch.Generator(device=dev).manual_seed(3)
+            neg = torch.randint(0, ds.num_nodes, (2, batch), generator=gen,
+                                device=dev, dtype=pos.dtype)
+            loss = step_mod.loss_fn(params, rc, ds.graph, pos[:, 0],
+                                    pos[:, 1], neg[0], neg[1], w, mr, gen)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        step()   # warm-up
+        t["op"].launches = 0
+        (loss, grads), ms, peak = _timed_call(step)
+        out[remat] = (loss, grads, ms, peak, t["op"].launches)
+        del params, leaves
+    paths = optim.tree_leaves_with_path(
+        _fresh_params(dev, cfg, int(ds.graph.x.shape[1])))
+    on, off = out[True], out[False]
+    _compare_steps(f"ddi-like classic step (C {c}, dim {cfg.dim}, bf16, "
+                   f"dropouts on) remat vs no remat", on[:2], off[:2], paths)
+    log(f"ddi-like classic step: remat {on[2]:.3f} ms, peak {on[3]:.2f} GiB,"
+        f" row 4 launches {on[4]}; no remat {off[2]:.3f} ms, peak "
+        f"{off[3]:.2f} GiB, row 4 launches {off[4]}  [{card}]")
+    if on[4] != 4 * cfg.trans_layers or off[4] != 2 * cfg.trans_layers:
+        raise AssertionError("row 4 must launch once more a forward under "
+                             "remat")
+
+
+def _grad_accum_arm(dev, ds, tabs, cfg, batch, pos, w, bin_w, ga):
+    """One make_train_step step at grad_accum ``ga`` on fresh parameters,
+    timed after one warm-up step: (loss, the grads the optimizer received,
+    ms, peak GiB, rows 1 / 2 launches of the timed step), and the leaves'
+    paths."""
+    from lpformer_tpu_torch.train import optim, step as step_mod
+
+    t = tabs["combined"]
+    opt = optim.make_optimizer(1e-3)
+    seen = []
+
+    def update(grads, state, p=None):
+        seen.append([g.detach().clone() for g in optim.tree_leaves(grads)])
+        return opt.update(grads, state, p)
+
+    step = step_mod.make_train_step(
+        cfg, optim.GradientTransformation(opt.init, update), grad_accum=ga)
+    for _ in ("warm-up", "timed"):
+        params = _fresh_params(dev, cfg, int(ds.graph.x.shape[1]))
+        state = step_mod.TrainState(params, opt.init(params), 0)
+        for f in (t["op"], t["bwd"]):
+            f.launches = 0
+        (state, loss), ms, peak = _timed_call(lambda: step(
+            state, ds.graph, ds.mask_mult_device, bin_w, pos[:, 0],
+            pos[:, 1], w, torch.Generator(device=dev).manual_seed(3)))
+    return ((loss, seen[-1], ms, peak, t["op"].launches, t["bwd"].launches),
+            optim.tree_leaves_with_path(params))
+
+
+def phase_ddi_grad_accum(dev, card, ds, tabs):
+    """Phase 11b, the ddi-like combined step (rows 1-3 at O = dh = 256):
+    make_train_step with grad_accum=2 against 1, dropouts off, the same
+    negatives, a padded tail of a quarter of the batch (zero weights, as a
+    ragged last batch has them): the loss and the gradients the optimizer
+    receives; both steps' ms and peak memory. Each pair runs through the
+    kernels, held to the tolerances, and through the plain versions as a
+    witness that is logged but not held. In bf16 each micro-batch's
+    gradient of a bf16 weight copy is rounded before the sum, on both
+    paths (STEP tolerances); in f32 the GEMMs' rounding at half the rows
+    remains (STEP_F32_LOSS_TOL, STEP_F32_ACCUM_GRAD_TOL)."""
+    from lpformer_tpu_torch import presets
+
+    cfg = dataclasses.replace(presets.DDI_LIKE_CONFIG, dropout=0.0,
+                              gnn_drop=0.0, att_drop=0.0)
+    batch = presets.DDI_LIKE_BATCH
+    pos = torch.as_tensor(ds.train_pos[:batch]).to(dev)
+    w = torch.ones(batch, device=dev)
+    w[-(batch // 4):] = 0.0
+    bin_w = (ds.graph.edge_w > 0).float()
+    x = torch.randn(batch, 3 * cfg.dim, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    lin = torch.randn(cfg.dim, 3 * cfg.dim, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(6))
+    half = (x @ lin.T)[:batch // 2] - x[:batch // 2] @ lin.T
+    log(f"f32 GEMM [{batch // 2}, {3 * cfg.dim}] x [{3 * cfg.dim}, "
+        f"{cfg.dim}] against the same rows of [{batch}, {3 * cfg.dim}]: "
+        f"bit-equal {bool((half == 0).all())}, max |diff| "
+        f"{float(half.abs().max()):.3e}")
+    f32 = dataclasses.replace(cfg, matmul_dtype="float32")
+    witness = (float("inf"), float("inf"))   # logged, not held
+    for label, c, plain, tol in (
+            ("bf16 kernels", cfg, False, (STEP_LOSS_TOL, STEP_GRAD_TOL)),
+            ("bf16 plain, a witness", cfg, True, witness),
+            ("f32 kernels", f32, False,
+             (STEP_F32_LOSS_TOL, STEP_F32_ACCUM_GRAD_TOL)),
+            ("f32 plain, a witness", f32, True, witness)):
+        restore = _plain_training_path(tabs) if plain else (lambda: None)
+        try:
+            out = {}
+            for ga in (2, 1):
+                out[ga], paths = _grad_accum_arm(dev, ds, tabs, c, batch,
+                                                 pos, w, bin_w, ga)
+                torch.cuda.empty_cache()
+        finally:
+            restore()
+        _compare_steps(f"ddi-like combined step (dim {c.dim}, batch {batch},"
+                       f" {batch // 4} padded, {label}) grad_accum 2 vs 1",
+                       out[2][:2], out[1][:2], paths, *tol)
+        log(f"ddi-like grad_accum ({label}): 2 micro-batches "
+            f"{out[2][2]:.3f} ms, peak {out[2][3]:.2f} GiB, rows 1/2 "
+            f"launches {out[2][4]}/{out[2][5]}; monolithic {out[1][2]:.3f} "
+            f"ms, peak {out[1][3]:.2f} GiB, rows 1/2 launches "
+            f"{out[1][4]}/{out[1][5]}  [{card}]")
+        for ga in (1, 2):
+            want = (0 if plain else 2 * ga * c.trans_layers,) * 2
+            if out[ga][4:] != want:
+                raise AssertionError(f"grad_accum {ga} ({label}): launches "
+                                     f"{out[ga][4:]}, not {want}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -1359,6 +1761,11 @@ def main() -> int:
     phase_train(dev, card, ds, "combined", tabs, cfg=presets.DDI_LIKE_CONFIG,
                 batch=presets.DDI_LIKE_BATCH)
     stamp("ddi-like path")
+    torch.cuda.empty_cache()
+    phase_ddi_remat(dev, card, ds, tabs)
+    torch.cuda.empty_cache()
+    phase_ddi_grad_accum(dev, card, ds, tabs)
+    stamp("ddi-like classic remat and grad_accum (phase 11)")
     del ds
     torch.cuda.empty_cache()
 
@@ -1366,12 +1773,15 @@ def main() -> int:
     stamp("HeaRT sweep")
     torch.cuda.empty_cache()
 
+    phase_pubmed(dev, card, tabs)
+    stamp("pubmed-like path (phase 10)")
+
     # the citation2-like preset: 1M nodes on the BlockedBELL, dim 64,
     # batch 32768, the combined table of 96 (rows 1-3)
     cfg, batch = presets.CITATION2_LIKE_CONFIG, presets.CITATION2_LIKE_BATCH
     ds = phase_citation2_build(dev)
     stamp("citation2-like build")
-    phase_citation2_spmm(dev, card, ds, cfg.dim)
+    phase_citation2_spmm(dev, card, ds, cfg.dim, batch)
     phase_citation2_kernels(dev, card, tabs, cfg, batch, ds.num_nodes + 1)
     stamp("citation2-like SpMM and kernel checks")
     phase_citation2_train(dev, card, ds, tabs, cfg, batch)

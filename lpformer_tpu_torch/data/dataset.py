@@ -17,6 +17,7 @@ from lpformer_tpu_torch import resolve_device
 from lpformer_tpu_torch.graph import preprocess as pp
 from lpformer_tpu_torch.graph.containers import (
     BlockedBELL,
+    BlockedCOO,
     BucketedELL,
     CSRGraph,
     GraphBundle,
@@ -78,18 +79,17 @@ def build_graph_bundle(
       * padded PPR rows from ``ppr_csr``, flagged where v is in N(u).
     With ``mask_uniq_keys`` (the sorted unique train-edge keys of
     ``masking.train_edge_info``) the adjacency rows carry each entry's
-    train-edge rank, which batch masking in training reads.
+    train-edge rank, which batch masking in training reads, and
+    ``edge_rank`` the propagation edges' ranks, which ``mask_input``
+    masks the propagation weights by.
 
     The SpMM layout follows the JAX package's rule: ``build_blocked``
-    (default: from BLOCKED_MIN_NODES nodes) builds the tiled BlockedBELL;
-    ``build_ell`` (default: when no blocked layout exists) the BucketedELL.
-    ``mask_input`` (the JAX package's BlockedCOO with edge ids on big
-    graphs, batch-masked propagation weights) is not ported and raises;
-    a BlockedCOO is reached by building it directly
-    (``BlockedCOO.from_coo``) and placing it in the bundle's ``blk``.
+    (default: from BLOCKED_MIN_NODES nodes) builds the tiled BlockedBELL,
+    whose weights are static, or with ``mask_input`` (batch-masked
+    weights, renormalised every step) the BlockedCOO with edge ids;
+    ``build_ell`` (default: when no blocked layout exists) the BucketedELL
+    with its slots' edge ids.
     """
-    if mask_input:
-        raise NotImplementedError("mask_input is not ported yet")
     dev = resolve_device(device)
     s, d, w = pp.symmetrize(edge_src, edge_dst, edge_w, num_nodes)
     ps_, pd_, pw_ = pp.sort_by_dst(
@@ -118,12 +118,19 @@ def build_graph_bundle(
     dinv = 1.0 / np.sqrt(deg_w)
     w_norm = (dinv[ps_] * pw_ * dinv[pd_]).astype(np.float32)
     w_diag = (dinv * dinv).astype(np.float32)
+    prop_ranks = (None if mask_uniq_keys is None
+                  else masking.edge_ranks_for_entries(ps_, pd_, mask_uniq_keys,
+                                                      num_nodes))
     if build_blocked is None:
         build_blocked = num_nodes >= BLOCKED_MIN_NODES
-    bbell = (BlockedBELL.from_coo(ps_, pd_, num_nodes, w_norm=w_norm)
-             if build_blocked else None)
+    bbell = blk = None
+    if build_blocked and mask_input:
+        blk = BlockedCOO.from_coo(ps_, pd_, num_nodes, w_norm=w_norm,
+                                  with_edge_ids=True)
+    elif build_blocked:
+        bbell = BlockedBELL.from_coo(ps_, pd_, num_nodes, w_norm=w_norm)
     if build_ell is None:
-        build_ell = bbell is None
+        build_ell = bbell is None and blk is None
     ell = (BucketedELL.from_sorted_coo(ps_, pd_, num_nodes, w_norm=w_norm)
            if build_ell else None)
     return GraphBundle(
@@ -139,7 +146,9 @@ def build_graph_bundle(
         ell=ell,
         w_norm=w_norm,
         w_diag=w_diag,
+        blk=blk,
         bbell=bbell,
+        edge_rank=prop_ranks,
     ).to(dev)
 
 

@@ -51,12 +51,15 @@ def synthetic_dataset(
     ppr_cap: Optional[int] = None,
     metric: str = "MRR",
     power: float = 0.8,
+    mask_input: bool = False,
     ppr_method: str = "native",
     device=None,
 ) -> LinkPredDataset:
     """The power-law synthetic dataset; the adjacency is the symmetrized
     train positives (reference read_datasets.py:85-95). With ``heart``
-    every eval positive gets its own ``heart_negs`` negatives, [P, K, 2]."""
+    every eval positive gets its own ``heart_negs`` negatives, [P, K, 2];
+    ``mask_input`` builds the propagation layout that batch-masked
+    weights re-weight (``build_graph_bundle``)."""
     dev = resolve_device(device)
     rng = np.random.default_rng(seed)
     train_pos = random_edges(rng, num_nodes, num_train, power)
@@ -80,7 +83,8 @@ def synthetic_dataset(
     uniq, _ = masking.train_edge_info(src, dst, num_nodes)
     graph = build_graph_bundle(
         x, src, dst, None, num_nodes, ppr_csr,
-        adj_cap=adj_cap, ppr_cap=ppr_cap, mask_uniq_keys=uniq, device=dev,
+        adj_cap=adj_cap, ppr_cap=ppr_cap, mask_uniq_keys=uniq,
+        mask_input=mask_input, device=dev,
     )
     idx = rng.permutation(len(train_pos))[: len(valid_pos)]
     return LinkPredDataset(

@@ -31,6 +31,10 @@ def _to(x, device):
     return None if x is None else torch.as_tensor(x).to(device)
 
 
+def _tuple_to(xs, device):
+    return None if xs is None else tuple(_to(a, device) for a in xs)
+
+
 @dataclasses.dataclass(frozen=True)
 class CSRGraph:
     """Host-side CSR adjacency, rows sorted by column id."""
@@ -218,11 +222,12 @@ class BucketedELL:
     the last tier the exact max degree). Every edge lands in exactly one
     slot, so the SpMM is row gathers and sums with no scatter. Per-tier
     outputs are concatenated and un-permuted by one [N]-row gather
-    (``outmap``; degree-0 rows map to an appended zeros row). The slots'
-    edge ids of the JAX layout, which re-weight a batch-masked graph
-    (``mask_input``, not ported), are not stored."""
+    (``outmap``; degree-0 rows map to an appended zeros row).
+    ``slot_edges`` holds each slot's index into the dst-sorted edge list,
+    which re-weights a batch-masked graph (``mask_input``)."""
 
     nbs: Tuple               # per tier: [Nb_t, cap_t] int32 src ids, pad 0
+    slot_edges: Optional[Tuple]  # per tier: [Nb_t, cap_t] int32, pad E
     w_slots: Optional[Tuple]  # per tier: [Nb_t, cap_t] f32 static norm
     outmap: object           # [N] int32
     caps: Tuple
@@ -235,9 +240,12 @@ class BucketedELL:
         edge_dst: np.ndarray,
         num_nodes: int,
         w_norm: Optional[np.ndarray] = None,
+        with_edge_ids: bool = True,
     ) -> Optional["BucketedELL"]:
         """Build from a (dst, src)-sorted COO edge list; ``w_norm`` attaches
-        the static slot weights. None for an empty graph."""
+        the static slot weights, ``with_edge_ids`` the slots' edge ids
+        (``with_edge_ids=False`` where only the static weights are ever
+        used, as in the BlockedBELL tiles). None for an empty graph."""
         e = len(edge_dst)
         if e == 0 or num_nodes == 0:
             return None
@@ -261,7 +269,7 @@ class BucketedELL:
             else np.concatenate(
                 [np.asarray(w_norm, np.float32), np.zeros(1, np.float32)])
         )
-        nbs, w_slots, caps = [], [], []
+        nbs, slot_edges, w_slots, caps = [], [], [], []
         outmap = np.full(num_nodes, -1, np.int64)
         offset = 0
         for t, cap in enumerate(caps_all):
@@ -284,12 +292,15 @@ class BucketedELL:
             outmap[rows] = offset + np.arange(nb_rows)
             offset += n_pad
             nbs.append(nb)
+            if with_edge_ids:
+                slot_edges.append(se.astype(np.int32))
             if w_ext is not None:
                 w_slots.append(w_ext[se])
             caps.append(int(cap))
         outmap[deg == 0] = offset  # zeros row appended by the op
         return BucketedELL(
             nbs=tuple(nbs),
+            slot_edges=tuple(slot_edges) if with_edge_ids else None,
             w_slots=tuple(w_slots) if w_ext is not None else None,
             outmap=outmap.astype(np.int32),
             caps=tuple(caps),
@@ -304,15 +315,11 @@ class BucketedELL:
     def to(self, device) -> "BucketedELL":
         return dataclasses.replace(
             self,
-            nbs=tuple(_to(a, device) for a in self.nbs),
-            w_slots=(None if self.w_slots is None
-                     else tuple(_to(a, device) for a in self.w_slots)),
+            nbs=_tuple_to(self.nbs, device),
+            slot_edges=_tuple_to(self.slot_edges, device),
+            w_slots=_tuple_to(self.w_slots, device),
             outmap=_to(self.outmap, device),
         )
-
-
-def _tuple_to(xs, device):
-    return None if xs is None else tuple(_to(a, device) for a in xs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -446,7 +453,7 @@ class BlockedBELL:
                 tiles.append(BucketedELL.from_sorted_coo(
                     (src[m] - ii * block).astype(np.int32),
                     (dst[m] - jj * block).astype(np.int32),
-                    rows_jj, w_norm=w[m],
+                    rows_jj, w_norm=w[m], with_edge_ids=False,
                 ))
         return BlockedBELL(tiles=tuple(tiles), block=block, kb=kb,
                            num_nodes=num_nodes, num_edges=e)
@@ -488,6 +495,9 @@ class GraphBundle:
     # tiled COO (static ``tw`` or re-weighted through ``te``)
     blk: Optional[BlockedCOO] = None
     bbell: Optional[BlockedBELL] = None
+    # [E] int32 train-edge rank of each propagation edge, -1 where none:
+    # what ``mask_input`` masks the propagation weights by
+    edge_rank: Optional[torch.Tensor] = None
 
     def to(self, device) -> "GraphBundle":
         return dataclasses.replace(
@@ -502,4 +512,5 @@ class GraphBundle:
             blk=None if self.blk is None else self.blk.to(device),
             bbell=None if self.bbell is None else self.bbell.to(device),
             w_norm=_to(self.w_norm, device), w_diag=_to(self.w_diag, device),
+            edge_rank=_to(self.edge_rank, device),
         )

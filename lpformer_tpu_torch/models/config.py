@@ -1,9 +1,8 @@
 """Model configuration (counterpart of ``lpformer_tpu/models/config.py``).
 
 The fields the eval and training paths read, with the JAX package's names
-and defaults. The TPU-only switches (``use_pallas_attention``,
-``remat_pairwise``) are not here: on a CUDA tensor the port always runs
-the hand-written kernels, and it has no remat yet.
+and defaults. The TPU-only switch ``use_pallas_attention`` is not here: on
+a CUDA tensor the port always runs the hand-written kernels.
 """
 from __future__ import annotations
 
@@ -39,6 +38,13 @@ class LPFormerConfig:
     # "bfloat16": every matmul takes bf16 inputs and accumulates in f32
     # (nn/core.py:matmul), and the context key tables are bf16
     matmul_dtype: str = "float32"
+
+    # recompute the pairwise block (context keys + attention layers) in
+    # the backward instead of holding its [B, C, dim] activations
+    # (torch.utils.checkpoint). None = auto: on when B * C * dim * 4 bytes
+    # exceed 2e9, the JAX package's threshold (models/link_transformer.py:
+    # remat_pairwise_on)
+    remat_pairwise: "bool | None" = None
 
     # static per-class context budgets: the widths of the classic table's
     # class blocks [cn | 1-hop | >1-hop]

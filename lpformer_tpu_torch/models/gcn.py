@@ -70,7 +70,8 @@ def gcn_apply(
     layer's SpMM takes the first layout present, as the JAX package's
     does: ``bbell`` (static norm only), then ``blk`` (its static ``tw``
     under a static norm, else re-weighted through its edge ids), then
-    ``ell`` (a BucketedELL with static slot weights, or an ELLAdjacency),
+    ``ell`` (a BucketedELL or an ELLAdjacency: its static slot weights
+    under a static norm, else re-weighted through its slots' edge ids),
     then the COO. With ``train`` and a generator, each layer draws one
     ``gnn_drop`` dropout mask between its LayerNorm and its ReLU."""
     if norm is not None:
@@ -88,15 +89,11 @@ def gcn_apply(
         elif blk is not None:
             xi = spmm.spmm_blocked(blk, None if blk_static else w_norm, xi,
                                    diag=diag, gather_dtype=mm_dtype)
-        elif isinstance(ell, BucketedELL):
-            if not ell_static:
-                raise NotImplementedError(
-                    "re-weighting a BucketedELL needs its slots' edge ids "
-                    "(mask_input), not ported yet")
-            xi = spmm.spmm_bell(ell, xi, diag=diag, gather_dtype=mm_dtype)
         elif ell is not None:
-            xi = spmm.spmm_ell(ell, None if ell_static else w_norm, xi,
-                               diag=diag, gather_dtype=mm_dtype)
+            spmm_fn = (spmm.spmm_bell if isinstance(ell, BucketedELL)
+                       else spmm.spmm_ell)
+            xi = spmm_fn(ell, None if ell_static else w_norm, xi, diag=diag,
+                         gather_dtype=mm_dtype)
         else:
             xi = spmm.spmm(edge_src, edge_dst, w_norm, xi, num_nodes,
                            diag=diag, gather_dtype=mm_dtype)

@@ -32,6 +32,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.utils.checkpoint
 
 from lpformer_tpu_torch import resolve_device
 from lpformer_tpu_torch.graph.containers import GraphBundle
@@ -98,17 +99,23 @@ def init_lpformer(
 
 def propagate(params: Dict, cfg: LPFormerConfig, graph: GraphBundle, *,
               gen: Optional[torch.Generator] = None,
-              train: bool = False) -> torch.Tensor:
+              train: bool = False,
+              edge_w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """GNN node encoding + final LayerNorm -> X_node [N, dim]
-    (reference: link_transformer.py:110-129, node_encoder.py:35-44)."""
+    (reference: link_transformer.py:110-129, node_encoder.py:35-44).
+    ``edge_w`` [E] replaces the bundle's propagation weights (the
+    batch-masked weights of ``mask_input``); the host-precomputed norm
+    holds for the bundle's own weights only, so with ``edge_w`` the GCN
+    recomputes it on the device."""
     params = nn.cast_matmul_weights(params, cfg.mm_dtype)
     x = nn.dropout(gen, graph.x, cfg.feat_drop, train)
     x = gcn_apply(
         params["node_encoder"], x, graph.edge_src, graph.edge_dst,
-        graph.edge_w, graph.num_nodes,
+        graph.edge_w if edge_w is None else edge_w, graph.num_nodes,
         gnn_drop=cfg.gnn_drop, residual=cfg.residual, relu=cfg.relu,
         gen=gen, train=train, mm_dtype=cfg.mm_dtype, ell=graph.ell,
-        norm=(graph.w_norm, graph.w_diag), blk=graph.blk, bbell=graph.bbell,
+        norm=(graph.w_norm, graph.w_diag) if edge_w is None else None,
+        blk=graph.blk, bbell=graph.bbell,
     )
     return nn.layer_norm_apply(params["gnn_norm"], x)
 
@@ -174,34 +181,79 @@ def _att_layer_apply(
     return nn.dropout(gen, out, cfg.dropout, train)
 
 
+def remat_pairwise_on(cfg: LPFormerConfig, batch: int, slots: int) -> bool:
+    """Whether the pairwise block is recomputed in the backward:
+    ``cfg.remat_pairwise``, or when it is None, whether the largest
+    activation it holds for the backward, [B, C, dim] f32 keys, exceeds
+    2e9 bytes (the JAX package's rule, link_transformer.py:518-528)."""
+    if cfg.remat_pairwise is not None:
+        return cfg.remat_pairwise
+    return batch * slots * cfg.dim * 4 > 2e9
+
+
+def _checkpoint_with_generator(fn, gen, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint`` (non-reentrant). The
+    checkpoint restores only the default RNGs, and ``fn`` draws its
+    dropout masks from ``gen``: so the recompute in the backward runs from
+    the state ``gen`` held at the forward, and ``gen`` gets back the state
+    it held before the recompute."""
+    start = None if gen is None else gen.get_state()
+    runs = [0]
+
+    def run(*a):
+        runs[0] += 1
+        if gen is None or runs[0] == 1:
+            return fn(*a)
+        now = gen.get_state()
+        gen.set_state(start)
+        try:
+            return fn(*a)
+        finally:
+            gen.set_state(now)
+
+    return torch.utils.checkpoint.checkpoint(
+        run, *args, use_reentrant=False, preserve_rng_state=False)
+
+
 def calc_pairwise(
     params: Dict, cfg: LPFormerConfig, X_node: torch.Tensor,
     src: torch.Tensor, tgt: torch.Tensor, ctx: ContextTables, *,
     gen: Optional[torch.Generator] = None, train: bool = False,
 ) -> torch.Tensor:
     """Pairwise term over the extracted context table
-    (reference: link_transformer.py:132-178)."""
+    (reference: link_transformer.py:132-178). The attention layers, key
+    gathers included, are rematerialised in the backward when
+    ``remat_pairwise_on`` says so."""
     if cfg.num_heads != 1:
         raise NotImplementedError("num_heads > 1 is not ported yet")
     feats = torch.cat([gather_rows(X_node, src), gather_rows(X_node, tgt)],
                       dim=-1)
     d = X_node.shape[-1]
     kd = cfg.mm_dtype or X_node.dtype
-    for lp in params["att_layers"]:
-        # node half of the keys projected once in [N] space; the PE half
-        # is computed inside the fused op from the [B, C] PPR tables
-        W = lp["lin_r"]["w"]
-        X_proj = nn.matmul(X_node, W[:d], cfg.mm_dtype).to(kd)
-        # pad row N = zeros. Invalid slots carry the pad id N, so they
-        # gather this zero row (the JAX package spreads them over real rows
-        # instead, a TPU gather-engine workaround); either way the op never
-        # reads an invalid slot's key
-        X_proj = torch.cat(
-            [X_proj, torch.zeros((1, W.shape[1]), dtype=kd,
-                                 device=X_proj.device)], dim=0)
-        xj_node = gather_rows_valid(X_proj, ctx.ids, ctx.valid)  # [B, C, O]
-        feats = _att_layer_apply(lp, params, cfg, feats, xj_node, ctx,
-                                 gen, train)
+
+    def attend(X_node, feats):
+        for lp in params["att_layers"]:
+            # node half of the keys projected once in [N] space; the PE
+            # half is computed inside the fused op from the [B, C] PPR
+            # tables
+            W = lp["lin_r"]["w"]
+            X_proj = nn.matmul(X_node, W[:d], cfg.mm_dtype).to(kd)
+            # pad row N = zeros. Invalid slots carry the pad id N, so they
+            # gather this zero row (the JAX package spreads them over real
+            # rows instead, a TPU gather-engine workaround); either way the
+            # op never reads an invalid slot's key
+            X_proj = torch.cat(
+                [X_proj, torch.zeros((1, W.shape[1]), dtype=kd,
+                                     device=X_proj.device)], dim=0)
+            xj_node = gather_rows_valid(X_proj, ctx.ids, ctx.valid)
+            feats = _att_layer_apply(lp, params, cfg, feats, xj_node, ctx,
+                                     gen, train)
+        return feats
+
+    if torch.is_grad_enabled() and remat_pairwise_on(cfg, *ctx.ids.shape):
+        feats = _checkpoint_with_generator(attend, gen, X_node, feats)
+    else:
+        feats = attend(X_node, feats)
 
     counts = ctx.counts  # [B, 4]: cns, 1hop, non1hop, neighbours
     if cfg.mask_mode == "cn":
@@ -220,16 +272,20 @@ def forward(
     src: torch.Tensor, tgt: torch.Tensor, *,
     gen: Optional[torch.Generator] = None, train: bool = False,
     mask_ranks: Optional[torch.Tensor] = None,
+    prop_edge_w: Optional[torch.Tensor] = None,
     X_node: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Edge representation h(a, b) [B, 2*dim]
     (reference: link_transformer.py:82-107). Pass ``X_node`` to reuse a
     propagated encoding (the propagate-once eval path, and the shared
     propagation of a training step); ``mask_ranks`` is the batch's
-    masked-rank bitmap (``ops/masking.batch_mask_ranks``)."""
+    masked-rank bitmap (``ops/masking.batch_mask_ranks``);
+    ``prop_edge_w`` the propagation weights to use in place of the
+    bundle's (``propagate``'s ``edge_w``)."""
     params = nn.cast_matmul_weights(params, cfg.mm_dtype)
     if X_node is None:
-        X_node = propagate(params, cfg, graph, gen=gen, train=train)
+        X_node = propagate(params, cfg, graph, gen=gen, train=train,
+                           edge_w=prop_edge_w)
     elementwise = nn.mlp_apply(
         params["elementwise_lin"],
         gather_rows(X_node, src) * gather_rows(X_node, tgt),

@@ -133,3 +133,17 @@ def rank_is_masked(
                            device=entry_ranks.device)
     rc = entry_ranks.clamp(0, u - 1).long()
     return mask_bitmap[rc] & (entry_ranks >= 0)
+
+
+def mask_edge_weights(
+    mask_bitmap: torch.Tensor,
+    edge_ranks: torch.Tensor,
+    edge_w: torch.Tensor,
+) -> torch.Tensor:
+    """The propagation weights with the batch's masked train edges set to
+    0, for ``mask_input`` (reference: src/train/train_model.py:47-57; the
+    reference builds that adjacency unweighted, so pass binarized
+    weights). ``edge_ranks`` [E] int32, -1 where no train edge (never
+    masked)."""
+    hit = rank_is_masked(mask_bitmap, edge_ranks)
+    return torch.where(hit, torch.zeros_like(edge_w), edge_w)

@@ -179,12 +179,21 @@ def _tier_chunk(nb, d, bytes_per, cap):
                                                    1))))
 
 
-def _spmm_bell_raw(bell, x, diag, gather_dtype):
+def _spmm_bell_raw(bell, w_norm, x, diag, gather_dtype):
     n, d = x.shape
     xg = x if gather_dtype is None else x.to(gather_dtype)
     bytes_per = xg.element_size()
+    if w_norm is None:
+        w_slots = bell.w_slots
+    else:
+        if bell.slot_edges is None:
+            raise ValueError(
+                "dynamic re-weighting needs the slots' edge ids, but this "
+                "BucketedELL was built with with_edge_ids=False")
+        w_ext = torch.cat([w_norm, w_norm.new_zeros(1)])
+        w_slots = [w_ext[se.long()] for se in bell.slot_edges]
     outs = []
-    for nb, ws, cap in zip(bell.nbs, bell.w_slots, bell.caps):
+    for nb, ws, cap in zip(bell.nbs, w_slots, bell.caps):
         outs.append(_tier_sweep(nb, ws, xg, x.dtype,
                                 _tier_chunk(nb, d, bytes_per, cap)))
     outs.append(torch.zeros((1, d), dtype=x.dtype, device=x.device))
@@ -196,30 +205,34 @@ def _spmm_bell_raw(bell, x, diag, gather_dtype):
 
 class _SpmmBellSymmetric(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, bell, diag, gather_dtype):
+    def forward(ctx, x, bell, w_norm, diag, gather_dtype):
         ctx.bell, ctx.gather_dtype = bell, gather_dtype
-        ctx.save_for_backward(diag)
-        return _spmm_bell_raw(bell, x, diag, gather_dtype)
+        ctx.save_for_backward(w_norm, diag)
+        return _spmm_bell_raw(bell, w_norm, x, diag, gather_dtype)
 
     @staticmethod
     def backward(ctx, ct):
-        (diag,) = ctx.saved_tensors
-        dx = _spmm_bell_raw(ctx.bell, ct.contiguous(), diag, ctx.gather_dtype)
-        return dx, None, None, None
+        w_norm, diag = ctx.saved_tensors
+        dx = _spmm_bell_raw(ctx.bell, w_norm, ct.contiguous(), diag,
+                            ctx.gather_dtype)
+        return dx, None, None, None, None
 
 
 def spmm_bell(
     bell,
+    w_norm: Optional[torch.Tensor],
     x: torch.Tensor,
     diag: Optional[torch.Tensor] = None,
     gather_dtype=None,
 ) -> torch.Tensor:
-    """out[v] = sum_{(u,v) in E} w_uv * x[u] (+ diag[v] * x[v]) with the
-    BucketedELL's static slot weights of a symmetric adjacency.
-    ``gather_dtype`` (bf16) rounds the gathered rows as the reference's
-    bf16 gather does, in both directions; products and sums stay in x's
-    dtype."""
-    return _SpmmBellSymmetric.apply(x, bell, diag, gather_dtype)
+    """out[v] = sum_{(u,v) in E} w_uv * x[u] (+ diag[v] * x[v]) over a
+    BucketedELL of a symmetric adjacency: ``w_norm=None`` uses the static
+    slot weights; otherwise the slots re-gather ``w_norm`` (indexed by
+    the dst-sorted edge order) through their edge ids, and ``w_norm``
+    takes no gradient. ``gather_dtype`` (bf16) rounds the gathered rows
+    as the reference's bf16 gather does, in both directions; products and
+    sums stay in x's dtype."""
+    return _SpmmBellSymmetric.apply(x, bell, w_norm, diag, gather_dtype)
 
 
 # --------------------------------------------------------------------------

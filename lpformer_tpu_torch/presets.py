@@ -12,7 +12,13 @@
   * citation2-like: bench.py:64-73 PRESETS["citation2-like"], a big sparse
     graph (1M nodes, so its propagation runs the tiled BlockedBELL) at dim
     64 and batch 32768, on the combined table of budget 96, with the same
-    synthetic generator settings (:245-256)."""
+    synthetic generator settings (:245-256);
+  * pubmed-like: ``configs/pubmed-existing.json`` at its published widths
+    (the repo's one ``mask_input`` configuration), every field the JSON
+    leaves out at the JAX CLI's default (lpformer_tpu/cli/run.py), on the
+    classic table of DATA_REQUEST.md's Planetoid budgets, over a
+    synthetic power-law graph of Pubmed's size (the real splits are not
+    in the repository)."""
 from __future__ import annotations
 
 import dataclasses
@@ -40,6 +46,12 @@ COLLAB_LIKE_BATCH = 4096
 # classic table's, C = 768)
 DDI_LIKE_CONFIG = dataclasses.replace(COLLAB_LIKE_CONFIG, dim=256)
 DDI_LIKE_CLASSIC_WIDTHS = (128, 320, 320)
+# the same on the classic table (C = 768), where B * C * dim * 4 = 3.2e9
+# bytes turns the pairwise block's remat on (remat_pairwise_on)
+DDI_LIKE_CLASSIC_CONFIG = dataclasses.replace(
+    DDI_LIKE_CONFIG, budget_combined=None,
+    **dict(zip(("budget_cn", "budget_onehop", "budget_non1hop"),
+               DDI_LIKE_CLASSIC_WIDTHS)))
 DDI_LIKE_DATA = dict(
     seed=0, num_nodes=4_096, num_train=500_000, num_eval=1000,
     feat_dim=256, eps=5e-4, adj_cap=96, ppr_cap=256,
@@ -57,3 +69,26 @@ CITATION2_LIKE_DATA = dict(
     feat_dim=96, eps=5e-4, adj_cap=96, ppr_cap=256,
 )
 CITATION2_LIKE_BATCH = 32_768
+
+# configs/pubmed-existing.json: dim 128, 1 GCN layer, every dropout 0.3,
+# thresholds 0 / 0.01 / 0.01, mask_input; the CLI's defaults for the rest
+# (lpformer_tpu/cli/run.py: f32 matmuls, 1 head, 1 transformer layer, 2
+# score layers, the classic table); DATA_REQUEST.md:92's Planetoid
+# budgets 32 / 96 / 96 (C = 224) and caps adj 64 / ppr 256
+PUBMED_LIKE_CONFIG = LPFormerConfig(
+    dim=128, gnn_layers=1, num_heads=1, trans_layers=1, pred_layers=2,
+    thresh_cn=0.0, thresh_1hop=1e-2, thresh_non1hop=1e-2,
+    dropout=0.3, gnn_drop=0.3, att_drop=0.3, feat_drop=0.3, pred_drop=0.3,
+    matmul_dtype="float32", budget_cn=32, budget_onehop=96,
+    budget_non1hop=96,
+)
+# Pubmed's size: 19,717 nodes, 500 features, 44,324 undirected edges of
+# which HeaRT's fixed 85/5/10 split trains on 37,676 and validates on
+# 2,216; the config's PPR eps 1e-5
+PUBMED_LIKE_DATA = dict(
+    seed=0, num_nodes=19_717, num_train=37_676, num_eval=2_216,
+    feat_dim=500, eps=1e-5, adj_cap=64, ppr_cap=256, mask_input=True,
+)
+# the config's batch_size, lr and l2 (decay 1: the TrainArgs default)
+PUBMED_LIKE_BATCH = 1024
+PUBMED_LIKE_LR, PUBMED_LIKE_L2 = 1e-3, 1e-4

@@ -2,16 +2,18 @@
 trace.
 
     python -m lpformer_tpu_torch.profile_train [--classic | --ddi |
-                                               --citation2] [steps]
+                                               --citation2 | --pubmed] [steps]
 
 Builds the collab-like dataset (presets.py), with the combined context
 table (COLLAB_LIKE_CONFIG) or with ``--classic`` the classic per-class
 table (COLLAB_LIKE_CLASSIC_CONFIG), or with ``--ddi`` the ddi-like dataset
 and preset (DDI_LIKE_CONFIG: dim 256, combined table), or with
 ``--citation2`` the citation2-like ones (CITATION2_LIKE_CONFIG: 1M nodes on
-the BlockedBELL, dim 64, batch 32768), takes two warm-up training steps
-of the preset's batch (4096, or 32768) with the default dropouts, then
-traces
+the BlockedBELL, dim 64, batch 32768), or with ``--pubmed`` the
+pubmed-like ones (PUBMED_LIKE_CONFIG: f32, the classic table of C = 224,
+batch 1024, ``mask_input``: two propagations a step, the positive half's
+re-weighted), takes two warm-up training steps of the preset's batch with
+the preset's dropouts, then traces
 ``steps``
 (default 5) more: wall time per step, device busy time per step (the CUDA
 kernels' self time), the device idle share, and the kernels that take the
@@ -39,6 +41,8 @@ from lpformer_tpu_torch.presets import (
     CITATION2_LIKE_BATCH, CITATION2_LIKE_CONFIG, CITATION2_LIKE_DATA,
     COLLAB_LIKE_BATCH, COLLAB_LIKE_CLASSIC_CONFIG, COLLAB_LIKE_CONFIG,
     COLLAB_LIKE_DATA, DDI_LIKE_BATCH, DDI_LIKE_CONFIG, DDI_LIKE_DATA,
+    PUBMED_LIKE_BATCH, PUBMED_LIKE_CONFIG, PUBMED_LIKE_DATA,
+    PUBMED_LIKE_L2, PUBMED_LIKE_LR,
 )
 from lpformer_tpu_torch.train import optim, step as step_mod
 from lpformer_tpu_torch.utils.measure import (
@@ -47,10 +51,16 @@ from lpformer_tpu_torch.utils.measure import (
 
 
 def main(steps: int = 5, classic: bool = False, ddi: bool = False,
-         citation2: bool = False, top: int = 15) -> None:
+         citation2: bool = False, pubmed: bool = False,
+         top: int = 15) -> None:
     dev = resolve_device()
     card = card_line()
-    if ddi:
+    lr, l2 = 1e-3, 0.0
+    if pubmed:
+        cfg, data, batch = (PUBMED_LIKE_CONFIG, PUBMED_LIKE_DATA,
+                            PUBMED_LIKE_BATCH)
+        lr, l2 = PUBMED_LIKE_LR, PUBMED_LIKE_L2
+    elif ddi:
         cfg, data, batch = DDI_LIKE_CONFIG, DDI_LIKE_DATA, DDI_LIKE_BATCH
     elif citation2:
         cfg, data, batch = (CITATION2_LIKE_CONFIG, CITATION2_LIKE_DATA,
@@ -64,10 +74,11 @@ def main(steps: int = 5, classic: bool = False, ddi: bool = False,
     for p in optim.tree_leaves(params):
         p.requires_grad_(True)
     opt = optim.make_optimizer(
-        1e-3, steps_per_epoch=-(-len(ds.train_pos) // batch))
+        lr, l2, steps_per_epoch=-(-len(ds.train_pos) // batch))
     state = step_mod.TrainState(params, opt.init(params), 0)
-    train_step = step_mod.make_train_step(cfg, opt)
+    train_step = step_mod.make_train_step(cfg, opt, mask_input=pubmed)
     mult = ds.mask_mult_device
+    bin_w = (ds.graph.edge_w > 0).float()
     gen = torch.Generator(device=dev).manual_seed(0)
     order = np.random.default_rng(0).permutation(len(ds.train_pos))
     links = torch.as_tensor(ds.train_pos[order]).to(dev)
@@ -77,8 +88,8 @@ def main(steps: int = 5, classic: bool = False, ddi: bool = False,
         nonlocal state
         for i in range(lo, lo + n):
             b = links[i * batch:(i + 1) * batch]
-            state, _ = train_step(state, ds.graph, mult, b[:, 0], b[:, 1], w,
-                                  gen)
+            state, _ = train_step(state, ds.graph, mult, bin_w, b[:, 0],
+                                  b[:, 1], w, gen)
 
     run(0, 2)
     wall_ms, busy_ms, rows = trace_device(lambda: run(2, steps), top)
@@ -142,5 +153,7 @@ if __name__ == "__main__":
                        help="the ddi-like preset (dim 256)")
     which.add_argument("--citation2", action="store_true",
                        help="the citation2-like preset (1M nodes, dim 64)")
+    which.add_argument("--pubmed", action="store_true",
+                       help="the pubmed-like preset (mask_input, f32)")
     args = ap.parse_args()
-    main(args.steps, args.classic, args.ddi, args.citation2)
+    main(args.steps, args.classic, args.ddi, args.citation2, args.pubmed)

@@ -9,14 +9,16 @@ and a multi-seed outer loop reporting mean +- std.
 
 The device never waits for the host inside an epoch: each epoch's batch
 indices and weights go to the device in one copy, and the loss is summed
-on the device and fetched once per epoch. Checkpoints (``save_as``,
-``save_every``, ``resume``), ``mesh``, ``grad_accum`` > 1,
-``steps_per_call`` > 1 and ``mask_input`` are not ported yet and raise
+on the device and fetched once per epoch. Checkpoints
+(``utils/checkpoint.py``, the JAX package's file format) carry the
+parameters, the optimizer state, the step, the epoch and the seed, for
+a true resume. ``mesh`` is not ported yet and raises
 ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List, Optional
 
@@ -28,6 +30,7 @@ from lpformer_tpu_torch.evalx import harness
 from lpformer_tpu_torch.models import config as cfg_mod
 from lpformer_tpu_torch.models import link_transformer as lt
 from lpformer_tpu_torch.train import optim, step as step_mod
+from lpformer_tpu_torch.utils import checkpoint as ckpt
 from lpformer_tpu_torch.utils.logger import ResultsLogger
 
 
@@ -50,30 +53,25 @@ class TrainArgs:
     heart: bool = False
     mask_input: bool = False
     save_as: Optional[str] = None
+    checkpoint_dir: str = "checkpoints"
     verbose: bool = True
-    resume: Optional[str] = None
-    save_every: int = 0
-    grad_accum: int = 1
+    data_name: str = "dataset"
+    double_propagate: Optional[bool] = None  # None = auto (two propagations
+                                   # only when mask_input requires them)
+    resume: Optional[str] = None   # checkpoint path to resume training from
+    save_every: int = 0            # also checkpoint every N epochs (crash
+                                   # recovery; 0 = only at best valid)
+    grad_accum: int = 1            # micro-batches per optimizer step
     mesh: Optional[str] = None
-    steps_per_call: int = 1
+    steps_per_call: int = 1        # optimizer steps per call of the step
+                                   # loop (a host loop over K steps)
     audit_budgets: bool = True     # one-shot start-of-training overflow
                                    # audit of the context budget
 
 
 def _refuse_unported(args: TrainArgs) -> None:
-    unported = {
-        "mesh": args.mesh is not None,
-        "resume": args.resume is not None,
-        "save_as": args.save_as is not None,
-        "save_every": args.save_every != 0,
-        "grad_accum > 1": args.grad_accum > 1,
-        "steps_per_call > 1": args.steps_per_call > 1,
-        "mask_input": args.mask_input,
-    }
-    asked = [name for name, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(
-            f"not ported yet: {', '.join(asked)}")
+    if args.mesh is not None:
+        raise NotImplementedError("not ported yet: mesh")
 
 
 def overflow_audit(ds: LinkPredDataset, cfg: cfg_mod.LPFormerConfig,
@@ -114,6 +112,48 @@ def _iter_batches(rng: np.random.Generator, n: int, batch_size: int):
         yield idx, w
 
 
+def _iter_step_groups(
+    rng: np.random.Generator, train_pos: np.ndarray, batch_size: int, k: int
+):
+    """Stack batches into groups of ``k`` for the multi-step loop; the last
+    group is padded with dead (live=0) steps."""
+    srcs, tgts, ws = [], [], []
+    for idx, w in _iter_batches(rng, len(train_pos), batch_size):
+        srcs.append(train_pos[idx, 0])
+        tgts.append(train_pos[idx, 1])
+        ws.append(w)
+        if len(srcs) == k:
+            yield (np.stack(srcs), np.stack(tgts), np.stack(ws),
+                   np.ones(k, np.float32))
+            srcs, tgts, ws = [], [], []
+    if srcs:
+        live = np.zeros(k, np.float32)
+        live[: len(srcs)] = 1.0
+        while len(srcs) < k:
+            srcs.append(np.zeros_like(srcs[0]))
+            tgts.append(np.zeros_like(tgts[0]))
+            ws.append(np.zeros_like(ws[0]))
+        yield np.stack(srcs), np.stack(tgts), np.stack(ws), live
+
+
+def _generator_seed(rng_seed: int, step: int) -> int:
+    """The device generator's seed at optimizer step ``step``: the JAX
+    package keys its draws by the step, which a checkpoint carries, and
+    the port's generator state is not in the file; so a resumed run
+    re-seeds from the run's seed and the restored step. A fresh run
+    (step 0) seeds with ``rng_seed + 1234``."""
+    return rng_seed + 1234 + (step << 32)
+
+
+def _save(path: str, state: step_mod.TrainState, epoch: int,
+          seed: int) -> None:
+    """The JAX trainer's checkpoint: exactly its five entries."""
+    ckpt.save_checkpoint(path, {
+        "params": state.params, "opt_state": state.opt_state,
+        "step": np.asarray(state.step, np.int32), "epoch": epoch,
+        "seed": seed})
+
+
 def run_eval(params, cfg: cfg_mod.LPFormerConfig, ds: LinkPredDataset,
              args: TrainArgs) -> Dict[str, tuple]:
     """The harness the dataset needs (reference train_model.py:114-117):
@@ -133,14 +173,22 @@ def train_loop(
     ds: LinkPredDataset,
     loggers: Dict[str, ResultsLogger],
     seed: int,
+    model_save_name: Optional[str] = None,
     rng_seed: Optional[int] = None,
     step_losses: Optional[List[torch.Tensor]] = None,
 ) -> float:
     """One run's training (reference train_model.py:87-140) on the
     dataset's device; returns the best valid metric. ``seed`` is the
     logger's run index; ``rng_seed`` (default: the same) seeds the weights,
-    the batch order and the device generator. ``step_losses``, when given,
-    collects every step's loss as a device tensor."""
+    the batch order and the device generator. With ``model_save_name``
+    the run writes ``<name>.ckpt`` at every best valid and, with
+    ``save_every``, ``<name>.latest.ckpt`` every that many epochs.
+    ``args.resume`` restores a checkpoint of either package and goes on
+    at its epoch + 1: the batch order restarts from ``rng_seed``, as the
+    JAX trainer's does, and the device generator re-seeds from
+    ``rng_seed`` and the restored step (``_generator_seed``).
+    ``step_losses``, when given, collects every step's loss as a device
+    tensor ([K] per call with ``steps_per_call`` = K > 1)."""
     _refuse_unported(args)
     if rng_seed is None:
         rng_seed = seed
@@ -161,43 +209,83 @@ def train_loop(
     dev = ds.graph.x.device
     params = lt.init_lpformer(torch.Generator().manual_seed(rng_seed), cfg,
                               in_dim=int(ds.graph.x.shape[1]), device=dev)
-    for p in optim.tree_leaves(params):
-        p.requires_grad_(True)
     steps_per_epoch = max(
         1, (len(ds.train_pos) + args.batch_size - 1) // args.batch_size)
     optimizer = optim.make_optimizer(args.lr, args.l2, args.decay,
                                      steps_per_epoch, clip_norm=1.0)
     state = step_mod.TrainState(params, optimizer.init(params), 0)
-    train_step = step_mod.make_train_step(cfg, optimizer,
-                                          num_negative=args.num_negative)
+    start_epoch = 1
+    if args.resume:
+        skeleton = {"params": state.params, "opt_state": state.opt_state,
+                    "step": torch.zeros((), dtype=torch.int32), "epoch": 0,
+                    "seed": 0}
+        blob = ckpt.load_checkpoint(args.resume, target=skeleton)
+        if blob is None:
+            raise FileNotFoundError(
+                f"--resume checkpoint not found: {args.resume}")
+        if int(blob["seed"]) != seed:
+            print(f"WARNING: resuming run {seed} from a checkpoint saved "
+                  f"for seed {int(blob['seed'])}", flush=True)
+        state = step_mod.TrainState(blob["params"], blob["opt_state"],
+                                    int(blob["step"]))
+        start_epoch = int(blob["epoch"]) + 1
+        if args.verbose:
+            print(f"resumed from {args.resume} at epoch {start_epoch}")
+    for p in optim.tree_leaves(state.params):
+        p.requires_grad_(True)
+    train_step = step_mod.make_train_step(
+        cfg, optimizer, num_negative=args.num_negative,
+        mask_input=args.mask_input, double_propagate=args.double_propagate,
+        grad_accum=args.grad_accum, steps_per_call=args.steps_per_call)
     mult = ds.mask_mult_device
+    bin_w = (ds.graph.edge_w > 0).float()
     data_rng = np.random.default_rng(rng_seed)
-    gen = torch.Generator(device=dev).manual_seed(rng_seed + 1234)
+    gen = torch.Generator(device=dev).manual_seed(
+        _generator_seed(rng_seed, state.step))
     train_pos = np.asarray(ds.train_pos)
     pos_dev = torch.as_tensor(train_pos).to(dev)
+    k = args.steps_per_call
 
     best_valid, kill_cnt = 0.0, 0
-    for epoch in range(1, args.epochs + 1):
+    for epoch in range(start_epoch, args.epochs + 1):
         t0 = time.time()
-        batches = list(_iter_batches(data_rng, len(train_pos),
-                                     args.batch_size))
-        idx_all = torch.as_tensor(np.stack([i for i, _ in batches])).to(dev)
-        w_all = torch.as_tensor(np.stack([w for _, w in batches])).to(dev)
         total_loss = torch.zeros((), dtype=torch.float32, device=dev)
-        total_examples = 0.0
-        for j, (_, w) in enumerate(batches):
-            links = pos_dev[idx_all[j]]
-            state, loss = train_step(state, ds.graph, mult, links[:, 0],
-                                     links[:, 1], w_all[j], gen)
-            if step_losses is not None:
-                step_losses.append(loss)
-            n_real = float(w.sum())
-            total_loss = total_loss + loss * n_real
-            total_examples += n_real
+        if k > 1:
+            groups = list(_iter_step_groups(data_rng, train_pos,
+                                            args.batch_size, k))
+            srcs, tgts, ws = (torch.as_tensor(np.stack([g[i] for g in groups])
+                                              ).to(dev) for i in range(3))
+            total_examples = float(sum(g[2].sum() for g in groups))
+            for j, (*_, live) in enumerate(groups):
+                state, losses = train_step(state, ds.graph, mult, bin_w,
+                                           srcs[j], tgts[j], ws[j], live, gen)
+                if step_losses is not None:
+                    step_losses.append(losses)
+                total_loss = total_loss + (losses * ws[j].sum(1)).sum()
+        else:
+            batches = list(_iter_batches(data_rng, len(train_pos),
+                                         args.batch_size))
+            idx_all = torch.as_tensor(
+                np.stack([i for i, _ in batches])).to(dev)
+            w_all = torch.as_tensor(np.stack([w for _, w in batches])).to(dev)
+            total_examples = float(sum(w.sum() for _, w in batches))
+            for j in range(len(batches)):
+                links = pos_dev[idx_all[j]]
+                state, loss = train_step(state, ds.graph, mult, bin_w,
+                                         links[:, 0], links[:, 1], w_all[j],
+                                         gen)
+                if step_losses is not None:
+                    step_losses.append(loss)
+                total_loss = total_loss + loss * w_all[j].sum()
         if args.verbose:
             print(f"Epoch {epoch} Loss: "
                   f"{float(total_loss) / total_examples:.4f} "
                   f"({time.time() - t0:.1f}s)", flush=True)
+
+        if (args.save_every and model_save_name is not None
+                and epoch % args.save_every == 0):
+            # periodic crash-recovery checkpoint, paired with resume
+            _save(model_save_name + ".latest.ckpt", state, epoch, seed)
 
         if epoch % args.eval_steps == 0:
             results = run_eval(state.params, cfg, ds, args)
@@ -210,6 +298,8 @@ def train_loop(
             if current > best_valid:
                 kill_cnt = 0
                 best_valid = current
+                if model_save_name is not None:
+                    _save(model_save_name + ".ckpt", state, epoch, seed)
             else:
                 kill_cnt += 1
                 if kill_cnt > args.kill_cnt:
@@ -220,8 +310,15 @@ def train_loop(
 def train_data(args: TrainArgs, cfg: cfg_mod.LPFormerConfig,
                ds: LinkPredDataset):
     """Multi-seed runs (reference train_model.py:143-182). Returns
-    (best valid mean, "valid mean ± std", "test mean ± std")."""
+    (best valid mean, "valid mean ± std", "test mean ± std"). With
+    ``save_as`` each run checkpoints under
+    ``<checkpoint_dir>/<data_name>/<save_as>`` (``_seed-<run + 1>`` added
+    when there are several runs)."""
     _refuse_unported(args)
+    model_save_name = None
+    if args.save_as is not None:
+        model_save_name = os.path.join(args.checkpoint_dir, args.data_name,
+                                       args.save_as)
     loggers = {
         "Hits@20": ResultsLogger(args.runs),
         "Hits@50": ResultsLogger(args.runs),
@@ -234,7 +331,10 @@ def train_data(args: TrainArgs, cfg: cfg_mod.LPFormerConfig,
         # reference semantics (train_model.py:147,165-167): a single run
         # uses args.seed; multi-run sweeps re-seed with the run index
         rng_seed = args.seed if args.runs == 1 else run
-        train_loop(args, cfg, ds, loggers, run, rng_seed=rng_seed)
+        run_name = model_save_name
+        if model_save_name is not None and args.runs > 1:
+            run_name = model_save_name + f"_seed-{run + 1}"
+        train_loop(args, cfg, ds, loggers, run, run_name, rng_seed=rng_seed)
 
     print(args.metric + "\n" + "-" * len(args.metric))
     best_mean, best_var = loggers[args.metric].print_statistics()

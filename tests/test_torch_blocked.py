@@ -364,7 +364,9 @@ def _self_ppr(n):
 def test_layout_selection_follows_jax():
     """From 262,144 nodes the bundle carries the BlockedBELL (kb = 2 at
     the default block of 131,072) and no ELL; below it the BucketedELL;
-    build_ell / build_blocked override either way; mask_input raises."""
+    build_ell / build_blocked override either way; mask_input takes the
+    BlockedCOO with edge ids on big graphs and the BucketedELL with its
+    slots' edge ids on small ones."""
     rng = np.random.default_rng(0)
     n = BLOCKED_MIN_NODES
     e = rng.integers(0, n, (20_000, 2))
@@ -393,7 +395,13 @@ def test_layout_selection_follows_jax():
                            small[:, 1], None, 1000, _self_ppr(1000),
                            build_ell=False, device="cpu")
     assert g.ell is None and g.bbell is None
-    with pytest.raises(NotImplementedError):
-        build_graph_bundle(np.zeros((1000, 1), np.float32), small[:, 0],
+    g = build_graph_bundle(np.zeros((1000, 1), np.float32), small[:, 0],
                            small[:, 1], None, 1000, _self_ppr(1000),
                            mask_input=True, device="cpu")
+    assert g.bbell is None and g.blk is None
+    assert g.ell.slot_edges is not None
+    g = build_graph_bundle(x, e[:, 0], e[:, 1], None, n, _self_ppr(n),
+                           adj_cap=8, ppr_cap=1, mask_input=True,
+                           device="cpu")
+    assert g.ell is None and g.bbell is None and g.blk.kb == 2
+    assert g.blk.te is not None

@@ -83,12 +83,13 @@ def test_bundle_refuses_blocked_sizes():
     empty = CSRGraph(np.arange(n + 1, dtype=np.int64),
                      np.arange(n, dtype=np.int32), np.ones(n, np.float32), n)
     # at this size the bundle takes the tiled BlockedBELL (the JAX
-    # package's rule); only the batch-masked variant (mask_input, whose
-    # BlockedCOO path is not ported) is still refused
+    # package's rule); the batch-masked variant (mask_input) the
+    # BlockedCOO with edge ids, which re-weights
     g = build_graph_bundle(np.zeros((n, 1), np.float32), np.array([0]),
                            np.array([1]), None, n, empty, device="cpu")
     assert g.ell is None and g.bbell.kb == 2
-    with pytest.raises(NotImplementedError):
-        build_graph_bundle(np.zeros((n, 1), np.float32), np.array([0]),
+    g = build_graph_bundle(np.zeros((n, 1), np.float32), np.array([0]),
                            np.array([1]), None, n, empty, mask_input=True,
                            device="cpu")
+    assert g.ell is None and g.bbell is None and g.blk.kb == 2
+    assert g.blk.te is not None and g.blk.tw is not None

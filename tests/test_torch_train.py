@@ -128,7 +128,7 @@ def test_spmm_bell_backward_matches_jax_vjp(both, bf16):
         jnp.asarray(x))
     (want,) = vjp(jnp.asarray(ct))
     tx = torch.as_tensor(x).requires_grad_(True)
-    out = tspmm.spmm_bell(td.graph.ell, tx, diag=td.graph.w_diag,
+    out = tspmm.spmm_bell(td.graph.ell, None, tx, diag=td.graph.w_diag,
                           gather_dtype=torch.bfloat16 if bf16 else None)
     out.backward(torch.as_tensor(ct))
     np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want), rtol=1e-5,
@@ -409,13 +409,26 @@ def test_results_logger_matches_jax(runs, capsys):
     ("save_every", 1), ("grad_accum", 2), ("steps_per_call", 4),
     ("mask_input", True), ("heart", True),
 ])
-def test_unported_options_raise(both, field, value):
+def test_unported_options_raise(both, field, value, tmp_path):
+    """Only ``mesh`` is still refused; each other option now runs one
+    epoch (tests/test_torch_{mask_input,grad_accum,checkpoint}.py hold
+    them to the JAX package)."""
     _, td = both
-    args = ttrainer.TrainArgs(epochs=1, verbose=False, **{field: value})
-    if field == "heart":
-        # ported since: the flag takes effect through the dataset's
-        # per-positive negatives (ds.heart), and train_loop runs
-        assert ttrainer.train_loop(args, TConfig(**COMMON), td, {}, 0) == 0.0
+    kw = {field: value}
+    if field == "resume":
+        # a checkpoint of one epoch to resume from, at epoch 2
+        first = ttrainer.TrainArgs(epochs=1, save_every=1, verbose=False)
+        name = str(tmp_path / "run")
+        ttrainer.train_loop(first, TConfig(**COMMON), td, {}, 0, name)
+        kw = dict(resume=name + ".latest.ckpt", epochs=2)
+    args = ttrainer.TrainArgs(**dict(dict(epochs=1, verbose=False,
+                                          checkpoint_dir=str(tmp_path)),
+                                     **kw))
+    if field == "mesh":
+        with pytest.raises(NotImplementedError):
+            ttrainer.train_loop(args, TConfig(**COMMON), td, {}, 0)
         return
-    with pytest.raises(NotImplementedError):
-        ttrainer.train_loop(args, TConfig(**COMMON), td, {}, 0)
+    losses = []
+    assert ttrainer.train_loop(args, TConfig(**COMMON), td, {}, 0,
+                               step_losses=losses) == 0.0
+    assert losses and all(bool(torch.isfinite(x).all()) for x in losses)
