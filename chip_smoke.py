@@ -1,6 +1,11 @@
 """Smoke run of the PyTorch/CUDA port (lpformer_tpu_torch) on one H100.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--collab-scale S] [--deterministic-ab]
+
+With no arguments phase 12 reads the collab npz at REHEARSAL_SCALE;
+``--collab-scale 1.0`` reads it at ogbl-collab's full size, and
+``--deterministic-ab`` adds phase 12's A/B of torch's deterministic
+algorithms.
 
 Phases, each printing its own lines:
   1. device: requires CUDA; prints the card's name and power limit;
@@ -96,6 +101,31 @@ and the per-link attention op's own path:
      generator seed (row 4 launched once more a forward under remat), and
      a grad_accum=2 step of the combined table against the monolithic one
      (rows 1-3), each pair's ms and peak memory;
+then graft_entry.entry()'s forward once (row 4), and the CLI,
+``lpformer_tpu_torch.cli.run.main``, in a scratch working directory:
+ 12. scripts/make_rehearsal_npz.py writes the schema-exact collab npz
+     (REHEARSAL_SCALE of ogbl-collab, or --collab-scale); ``--config
+     ogbl-collab-existing --runs 1 --epochs 1 --save-as`` reads it (year
+     filter, both PPRs at eps 5e-5 and their cache, both bundles),
+     measures the budgets and trains one epoch of batches of 24,000 in f32
+     on the classic table (rows 3-5): host build, budgets, the remat
+     rule, epoch wall and peak memory printed, the loss finite, the
+     launches as predicted from the path's calls, both PPR cache files
+     present; ``--checkpoint`` then rebuilds from the cache and must
+     print the training run's best metrics bit for bit, and score every
+     eval link as the training run's eval did within CKPT_SCORE_TOL (row
+     4's f32 atomics reorder from run to run); then, on that dataset and
+     the CLI's config, rows 4-5 against their plain versions in f32 at
+     the path's class widths, O = dh = dim (the forward at the eval batch,
+     the backward at the train batch), and one training step through the
+     kernels against the plain path; with --deterministic-ab, torch's
+     deterministic algorithms on against off (step medians by CUDA
+     events, warnings, and the device kernels the flag swaps, from a
+     trace of each);
+ 13. ``--config cora-heart --runs 1 --epochs 1 --eval_steps 1`` on a
+     Planetoid + HeaRT fixture at Cora's published sizes: rows 3-5 at
+     dh = 256 in f32, the MRR in [0, 1], the launches as predicted; then
+     rows 4-5 and one step against their plain versions as in phase 12;
 then a "kernels:" summary line and a JSON line of per-kernel numbers (each
 kernel's launches from its path's run: rows 1-3 the collab-like combined
 train_loop, rows 4-5 the classic one, rows 6-7 phase 7, row 8 phase 6),
@@ -104,14 +134,21 @@ Any failure exits nonzero before that line. Nothing here imports JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
+import io
 import json
 import math
 import os
+import re
 import statistics
+import argparse
+import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -162,6 +199,35 @@ STEP_F32_LOSS_TOL, STEP_F32_GRAD_TOL = 1e-4, 1e-4
 # through the kernels (PERF.md §6); a wrong denominator or a lost
 # micro-batch moves every leaf by O(1e-1).
 STEP_F32_ACCUM_GRAD_TOL = 2e-3
+# Row 5 at a CLI path's shapes in f32 (the collab CLI's backward sums over
+# 525,864 valid slots). Its weight grads are sums over every valid slot of
+# the batch that cancel, and two rounding-level effects move them past
+# BWD_TOL relative to |sum|: the kernel's order of f32 additions (a
+# thread's rows, a block's tiles, then one atomic per block and element)
+# and the ReLU slopes that flip where their inputs lie within rounding of
+# 0 (``python -m lpformer_tpu_torch.profile_kernels --cli-widths`` measures
+# both against witnesses: at the collab CLI's shape the kernel is 3.0e-5
+# to 3.2e-5 of mean |sum| from the f64 sums, the plain version's tree sums
+# 3.1e-7 to 3.4e-7). So each weight-grad element is held to its sum in
+# f64 relative to the sum of its terms' magnitudes, which bounds any order
+# of f32 additions: a chain of n errs by at most n 2^-24 of it, and the
+# dw2 kernel's chains there are ~5,000 long (88 blocks a class on 132 SMs,
+# each summing its ~2,500 slots' two directions, then one atomic each),
+# so the max over elements is held to 1e-3 (chains up to 16,777), and the
+# mean |err| over the mean magnitude to 1e-5, which a backward that loses
+# 0.1% of the valid slots exceeds 20-fold (tests/test_torch_pe_attention.py,
+# at B 2048 on the CPU). dkeys holds BWD_TOL with its
+# elements at the leaky ReLU's kink held to an f64 witness
+# (measure.kink_exempt); dq and datt hold BWD_TOL.
+SUM_TOL, SUM_TOL_MEAN = 1e-3, 1e-5
+# Phase 12's --checkpoint eval scores against the training run's eval of
+# the same parameters, max |diff| of the probabilities: row 4 adds each
+# link's runs of valid slots into out with f32 atomics
+# (csrc/pe_attention_fwd_tiles.cuh), so the order of those additions, and
+# the last bits of a score, change from run to run (an ulp is 6e-8 near
+# 1); a leaf saved or loaded wrong, or rounded to bf16, moves scores by
+# 1e-3 or more.
+CKPT_SCORE_TOL = 1e-5
 # The citation2-like SpMM layouts against the single BucketedELL, max abs
 # error: every arm sums the same products in f32 (after the same bf16
 # rounding of x with bf16 gather), in other orders; outputs are O(1)
@@ -976,7 +1042,8 @@ def _timed_steps(dev, card, ds, layout, cfg, batch, steps, skip=2,
     fused optimizer; with ``mask_input`` the masked propagation weights
     and two propagations), CUDA events around the forward, backward and
     optimizer; logs the medians over the steps after the first ``skip``
-    and the peak memory, and returns every step's loss."""
+    and the peak memory, and returns (every step's loss, the median step
+    ms)."""
     from lpformer_tpu_torch.ops import masking
     from lpformer_tpu_torch.train import optim, step as step_mod
 
@@ -1026,7 +1093,7 @@ def _timed_steps(dev, card, ds, layout, cfg, batch, steps, skip=2,
         f"{bwd:.3f} + optimizer {upd_ms:.3f}; {batch / total * 1e3:.0f} "
         f"positive links/s; peak memory of the steps "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
-    return losses
+    return losses, total
 
 
 def phase_train(dev, card, ds, layout, tabs, cfg=None, batch=None, epochs=1,
@@ -1370,8 +1437,8 @@ def phase_citation2_train(dev, card, ds, tabs, cfg, batch, steps=8):
     counters = _counters(tabs)
     for f in counters.values():
         f.launches = 0
-    losses = _timed_steps(dev, card, ds, "combined (citation2-like)", cfg,
-                          batch, steps)
+    losses, _ = _timed_steps(dev, card, ds, "combined (citation2-like)",
+                             cfg, batch, steps)
     launches = {n: f.launches for n, f in counters.items()}
     want = dict.fromkeys(counters, 0)
     for name in (t["fwd_entry"][0], t["bwd_entry"][0], "scatter_rows_add"):
@@ -1702,8 +1769,470 @@ def phase_ddi_grad_accum(dev, card, ds, tabs):
                 raise AssertionError(f"grad_accum {ga} ({label}): launches "
                                      f"{out[ga][4:]}, not {want}")
 
+# scripts/make_rehearsal_npz.py --scale of phase 12's npz by default (1.0:
+# ogbl-collab's 235,868 nodes and 1,179,052 train collaborations, whose
+# cold build of both PPRs took 340.6 s of the script's 1200; PERF.md §4)
+REHEARSAL_SCALE = 0.5
+# phase 13's Planetoid fixture at Cora's published sizes, with HeaRT's 500
+# negatives a positive
+CORA_NODES, CORA_FEATS, CORA_EDGES, CORA_HEART_NEGS = 2708, 1433, 5278, 500
 
-def main() -> int:
+
+class _Tee(io.TextIOBase):
+    """Standard output that is also kept."""
+
+    def __init__(self, out):
+        self.out, self.buf = out, io.StringIO()
+
+    def write(self, s):
+        self.out.write(s)
+        return self.buf.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def _cli(argv):
+    """``lpformer_tpu_torch.cli.run.main(argv)``, its standard output echoed
+    and kept: (result, output, wall s)."""
+    from lpformer_tpu_torch.cli import run
+
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        result = run.main(argv)
+    torch.cuda.synchronize()
+    return result, tee.buf.getvalue(), time.perf_counter() - t0
+
+
+def _printed_metrics(text):
+    """{metric: (train, valid, test)} from the CLI's '  name = (...)'
+    lines, as printed (Python float reprs: equal text, equal bits)."""
+    return {m.group(1): tuple(float(x) for x in m.group(2).split(", "))
+            for m in re.finditer(r"^  (\S+) = \((.*)\)$", text, re.M)}
+
+
+def _printed(pattern, text, what):
+    m = re.search(pattern, text)
+    if m is None:
+        raise AssertionError(f"the CLI printed no {what}")
+    return m.groups()
+
+
+def _zeroed(tabs):
+    counters = _counters(tabs)
+    for f in counters.values():
+        f.launches = 0
+    return counters
+
+
+def _check_launches(label, counters, want, card):
+    launches = {n: f.launches for n, f in counters.items()}
+    log(f"{label}: launches {launches} (predicted {want})  [{card}]")
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != {want}")
+
+
+def phase_graft_entry(dev, tabs):
+    """graft_entry.entry(): the single-device forward at the JAX entry's
+    tiny shapes, once: 64 finite probabilities through row 4."""
+    from lpformer_tpu_torch import graft_entry
+
+    counters = _zeroed(tabs)
+    fn, args = graft_entry.entry()
+    out = fn(*args)
+    fwd = tabs["classic"]["fwd_entry"][0]
+    log(f"graft_entry.entry(): scores {tuple(out.shape)} on "
+        f"{out.device}, {counters[fwd].launches} launch(es) of {fwd}")
+    if (out.shape != (64,) or out.device.type != "cuda"
+            or not bool(((out > 0) & (out < 1)).all())
+            or counters[fwd].launches != 1):
+        raise AssertionError("graft_entry.entry() failed")
+
+
+@contextlib.contextmanager
+def _recording(module, name, sink):
+    """``module.name`` replaced, inside the block, by a wrapper that
+    appends each call's result to ``sink``."""
+    real = getattr(module, name)
+
+    def wrapper(*a, **kw):
+        sink.append(real(*a, **kw))
+        return sink[-1]
+
+    setattr(module, name, wrapper)
+    try:
+        yield sink
+    finally:
+        setattr(module, name, real)
+
+
+def _close_scores(label, a, b, card):
+    """The eval scores of two runs (one array per score_edges call), each
+    pair of the same shape and dtype and within CKPT_SCORE_TOL; logs how
+    many there are, how many distinct values they take (scores that all
+    saturated would prove little) and how many differ at all."""
+    same = len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape for x, y in zip(a, b))
+    diff = max((float(np.abs(x.astype(np.float64) - y).max())
+                for x, y in zip(a, b) if x.size), default=0.0) if same else \
+        math.inf
+    n_diff = sum(int((x != y).sum()) for x, y in zip(a, b)) if same else -1
+    flat = np.concatenate([x.ravel() for x in a]) if a else np.zeros(0)
+    log(f"{label}: {len(a)} / {len(b)} score arrays, {flat.size} scores "
+        f"({np.unique(flat).size} distinct, in [{flat.min():.6g}, "
+        f"{flat.max():.6g}]); {n_diff} differ, max |diff| {diff:.3e} (tol "
+        f"{CKPT_SCORE_TOL})  [{card}]")
+    if not same or not diff <= CKPT_SCORE_TOL or not np.isfinite(flat).all():
+        raise AssertionError(f"{label}: the scores differ")
+
+
+def _bwd_check_sums(t, a, label):
+    """Row 5 in f32 against its plain version on the backward inputs ``a``
+    of the classic table, held as SUM_TOL's comment says; logs both
+    measures (the weight grads' BWD_TOL-style errors against the plain
+    version too, unheld) and the times."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = t["bwd"](**a)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    want = in_link_chunks(t["bwd_plain"], a, 2)
+    wit = in_link_chunks(measure.classic_bwd_f64, a, 0)
+    tol, tol_mean = BWD_TOL[torch.float32]
+    dkeys, n_kink = measure.kink_exempt(a, got[0], want[0], tol)
+    per_link = {n: _rel_errs(x, y) for n, x, y in (
+        ("dkeys", dkeys, want[0]), ("dq", got[1], want[1]),
+        ("datt", got[7], want[7]))}
+    ok_ = all(e[0] <= tol and e[1] <= tol_mean for e in per_link.values())
+    sums, text = {}, []
+    for n, x, p, ex, mag in zip(BWD_NAMES[2:7], got[2:7], want[2:7],
+                                wit[:5], wit[5:]):
+        err = (x.double() - ex).abs()
+        perr = (p.double() - ex).abs()
+        ok_ &= bool((err <= SUM_TOL * mag).all())
+        sums[n] = (float((err / mag.clamp_min(1e-300)).max()),
+                   float(err.mean() / mag.mean().clamp_min(1e-300)))
+        ok_ &= sums[n][1] <= SUM_TOL_MEAN
+        text.append(f"{n} {sums[n][0]:.2e}/{sums[n][1]:.2e} (plain "
+                    f"{float((perr / mag.clamp_min(1e-300)).max()):.2e}/"
+                    f"{float(perr.mean() / mag.mean()):.2e}; vs plain "
+                    f"{_rel_errs(x, p)[0]:.2e}/{_rel_errs(x, p)[1]:.2e})")
+    ok_ &= all(bool(torch.isfinite(x.float()).all()) for x in got)
+    del got, want, wit, dkeys
+    ms = time_ms(lambda: t["bwd"](**a), 3, per=2)
+    plain_ms = time_ms(lambda: in_link_chunks(t["bwd_plain"], a, 2), 3, 1)
+    bound, bound_by, nv = t["bwd_bound"](a)
+    log(f"kernel bwd classic float32 {label} ({_shape(a)}): "
+        + ", ".join(f"{n} {e[0]:.2e}/{e[1]:.2e}" for n, e in
+                    per_link.items())
+        + f" (max/mean rel err against plain, {n_kink} dkeys elements at "
+        f"the kink held to the f64 witness; tol {tol}/{tol_mean}); weight "
+        f"grads against their f64 sums, over the sums of their terms' "
+        f"magnitudes (max/mean; tol {SUM_TOL}/{SUM_TOL_MEAN}): "
+        + ", ".join(text) + f"; {nv} valid slots; kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({bound_by})")
+    if not ok_:
+        raise AssertionError(f"classic backward kernel at {label} "
+                             f"disagrees with plain in f32")
+
+
+def _hold_path_kernels(dev, tabs, label, cfg, args):
+    """Rows 4-5 against their plain versions in f32 at a CLI path's class
+    widths and O = dh = dim (the forward at the eval batch, the backward
+    at the train batch, held by _bwd_check_sums), with
+    collab_link_counts' spread in each block."""
+    t = tabs["classic"]
+    kw = dict(widths=tuple(cfg.context.class_budgets), o=cfg.dim,
+              dh=cfg.dim)
+    f32 = torch.float32
+    a = t["inputs"](dev, f32, b=args.test_batch_size, **kw)
+    _fwd_check("classic", t, a, f32, label, (3, 2))
+    del a
+    a = bwd_inputs(t["inputs"](dev, f32, b=args.batch_size, **kw))
+    _bwd_check_sums(t, a, label)
+    del a
+    torch.cuda.empty_cache()
+
+
+def _deterministic_ab(dev, card, ds, args, steps=7):
+    """The A/B of torch's deterministic algorithms (what the JAX package's
+    init_seed turns on, and the port's only on the CPU) on the CLI's own
+    dataset and config: the timed step with the flag on and off, in turns
+    on, off, off, on; the distinct warnings each arm raised; and, from
+    three traced steps each way, the device kernels the flag adds, drops
+    or launches a different number of times. The flag is put back as it
+    was."""
+    from lpformer_tpu_torch.cli import run
+
+    cfg = run.build_config(args, ds)
+    batch = args.batch_size
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    ms = {True: [], False: []}
+    warned = {True: set(), False: set()}
+    for flag in (True, False, False, True):
+        torch.use_deterministic_algorithms(flag, warn_only=True)
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            _, median = _timed_steps(
+                dev, card, ds, f"classic (collab CLI, deterministic "
+                f"{'on' if flag else 'off'})", cfg, batch, steps)
+        ms[flag].append(median)
+        warned[flag] |= {f"{w.category.__name__}: "
+                         f"{str(w.message).splitlines()[0][:240]}"
+                         for w in rec}
+    kernels = {}
+    for flag in (True, False):
+        torch.use_deterministic_algorithms(flag, warn_only=True)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            _, busy, rows = measure.trace_device(
+                lambda: _timed_steps(dev, card, ds, "traced", cfg, batch, 3),
+                top=10**6)
+        kernels[flag] = {name: (count, k_ms) for k_ms, count, name in rows}
+    torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+    log(f"init_seed A/B (collab CLI step, batch {batch}, median of "
+        f"{steps - 2} steps a run): deterministic on {ms[True]} ms, off "
+        f"{ms[False]} ms  [{card}]")
+    for flag in (True, False):
+        log(f"  warnings with the flag {'on' if flag else 'off'} "
+            f"({len(warned[flag])} distinct): " + (" | ".join(
+                sorted(warned[flag])) or "none"))
+    on, off = kernels[True], kernels[False]
+    diff = sorted(n for n in set(on) | set(off)
+                  if on.get(n, (0,))[0] != off.get(n, (0,))[0])
+    log(f"  device kernels whose launches the flag changes (3 steps, "
+        f"on / off): {len(diff)}")
+    for n in diff:
+        a, b = on.get(n, (0, 0.0)), off.get(n, (0, 0.0))
+        log(f"    {a[0]} / {b[0]} launches, {a[1]:.3f} / {b[1]:.3f} ms: "
+            f"{n[:160]}")
+
+
+def phase_cli_collab(dev, card, tabs, scale=REHEARSAL_SCALE,
+                     deterministic_ab=False):
+    """Phase 12: the CLI on the schema-exact collab npz that
+    scripts/make_rehearsal_npz.py writes at ``scale``: ``--config
+    ogbl-collab-existing`` for one run of one epoch with --save-as (the
+    year filter, both PPRs, both bundles, measured budgets, f32 rows 3-5
+    on the classic table), its launches as predicted from its calls, a
+    finite loss, metrics in [0, 1] and both PPR cache files; then
+    ``--checkpoint`` from the cache, whose metrics must equal the training
+    run's bit for bit and its eval scores within CKPT_SCORE_TOL; then rows
+    4-5 and one training
+    step against their plain versions at the path's shapes on that
+    dataset; with ``deterministic_ab`` the A/B of _deterministic_ab."""
+    from lpformer_tpu_torch.cli import run
+    from lpformer_tpu_torch.evalx import harness
+    from lpformer_tpu_torch.models.config import LPFormerConfig
+    from lpformer_tpu_torch.models.link_transformer import remat_pairwise_on
+
+    t = tabs["classic"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        data, ck = os.path.join(tmp, "data"), os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, os.path.join(
+            root, "scripts", "make_rehearsal_npz.py"), "--out", data,
+            "--scale", str(scale)], check=True, timeout=600)
+        with np.load(os.path.join(data, "ogbl-collab.npz")) as z:
+            n_train = int((z["train_year"] >= 2007).sum())
+            eval_sizes = [len(z["valid_pos"]), len(z["valid_pos"]),
+                          len(z["test_pos"]), len(z["valid_neg"]),
+                          len(z["test_neg"])]
+        log(f"phase 12: rehearsal npz (scale {scale}) written in "
+            f"{time.perf_counter() - t0:.1f} s; {n_train} train links from "
+            f"2007 on")
+        argv = ["--config", "ogbl-collab-existing", "--data-dir", data,
+                "--runs", "1", "--epochs", "1", "--save-as", "smoke",
+                "--checkpoint-dir", ck]
+        args = run.apply_config(run.build_parser(), argv)
+        os.chdir(tmp)  # the readers' PPR cache: node_subsets/ppr/<name>/
+        try:
+            counters = _zeroed(tabs)
+            torch.cuda.reset_peak_memory_stats()
+            with _recording(harness, "score_edges", []) as trained_scores:
+                _, out, wall = _cli(argv)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            build_s = float(_printed(r"read and built in ([\d.]+) s", out,
+                                     "build time")[0])
+            budgets = tuple(int(x) for x in _printed(
+                r"cn=(\d+) onehop=(\d+) non1hop=(\d+)", out, "budgets"))
+            loss, epoch_s = _printed(r"Epoch 1 Loss: (\S+) \(([\d.]+)s\)",
+                                     out, "epoch loss")
+            steps = -(-n_train // args.batch_size)
+            remat = remat_pairwise_on(LPFormerConfig(dim=args.dim),
+                                      args.batch_size, sum(budgets))
+            eval_batches = sum(-(-m // args.test_batch_size)
+                               for m in eval_sizes)
+            log(f"phase 12 train: host build {build_s} s (both PPRs, both "
+                f"bundles), budgets {budgets} (C = {sum(budgets)}), remat "
+                f"{'on' if remat else 'off'} (B*C*dim*4 = "
+                f"{args.batch_size * sum(budgets) * args.dim * 4:.3e}), "
+                f"epoch {epoch_s} s for {steps} steps of "
+                f"{args.batch_size}, loss {loss}, main() {wall:.1f} s, peak "
+                f"memory {peak:.2f} GiB  [{card}]")
+            want = dict.fromkeys(counters, 0)
+            want[t["fwd_entry"][0]] = ((2 + 2 * remat) * steps
+                                       + eval_batches) * args.tlayers
+            want[t["bwd_entry"][0]] = 2 * steps * args.tlayers
+            want["scatter_rows_add"] = 2 * steps * args.tlayers
+            _check_launches("phase 12 train", counters, want, card)
+            trained = _printed_metrics(out)
+            cache = sorted(os.listdir(os.path.join(
+                tmp, "node_subsets", "ppr", args.data_name)))
+            log(f"phase 12 PPR cache: {cache}")
+            if not math.isfinite(float(loss)):
+                raise AssertionError(f"phase 12 loss {loss}")
+            if cache != ["sparse_adj-015_eps-5e-05.npz",
+                         "sparse_adj-015_eps-5e-05_val.npz"]:
+                raise AssertionError(f"phase 12 PPR cache files {cache}")
+            if list(trained) != [args.metric or run.default_metric(args)]:
+                raise AssertionError(f"phase 12 metrics {trained}")
+
+            counters = _zeroed(tabs)
+            with _recording(run, "load_dataset", []) as kept, _recording(
+                    harness, "score_edges", []) as evaluated_scores:
+                res, out, wall = _cli(argv + ["--checkpoint", "smoke"])
+            build_s = float(_printed(r"read and built in ([\d.]+) s", out,
+                                     "build time")[0])
+            evaluated = _printed_metrics(out)
+            name = list(trained)[0]
+            log(f"phase 12 --checkpoint: host build from the PPR cache "
+                f"{build_s} s, main() {wall:.1f} s; {name} trained "
+                f"{trained[name]}, evaluated {evaluated.get(name)}  [{card}]")
+            want = dict.fromkeys(counters, 0)
+            want[t["fwd_entry"][0]] = eval_batches * args.tlayers
+            _check_launches("phase 12 --checkpoint", counters, want, card)
+            if evaluated.get(name) != trained[name] or res != [
+                    trained[name][2]]:
+                raise AssertionError("phase 12: the checkpoint's metrics "
+                                     "differ from the training run's")
+            for k, v in evaluated.items():
+                if not all(0.0 <= x <= 1.0 for x in v):
+                    raise AssertionError(f"{k} out of range: {v}")
+            _close_scores("phase 12 --checkpoint eval scores against the "
+                          "training run's", evaluated_scores, trained_scores,
+                          card)
+            del trained_scores, evaluated_scores
+            ds = kept.pop()
+            cfg = run.build_config(args, ds)
+            _hold_path_kernels(dev, tabs, "collab CLI", cfg, args)
+            _step_pair(dev, ds, "classic (collab CLI)", tabs, cfg,
+                       args.batch_size)
+            if deterministic_ab:
+                _deterministic_ab(dev, card, ds, args)
+            del ds
+        finally:
+            os.chdir(cwd)
+    torch.cuda.empty_cache()
+
+
+def _write_cora_like(root, seed=0):
+    """A Planetoid directory ``cora`` at Cora's published sizes (2,708
+    nodes, 1,433 binary features at Cora's ~1.3% density, 5,278 edges in
+    an 85/5/10 split; a perfect matching covers every node and power-law
+    draws give the rest), plain negatives as many as the positives, and
+    HeaRT's [P, 500, 2] negatives (each positive's source against 500
+    random targets). Returns the split sizes."""
+    rng = np.random.default_rng(seed)
+    n = CORA_NODES
+    match = rng.permutation(n).reshape(-1, 2)
+    p = np.arange(1, n + 1, dtype=np.float64) ** -0.8
+    extra = rng.choice(n, size=(3 * CORA_EDGES, 2), p=p / p.sum())
+    extra = extra[extra[:, 0] != extra[:, 1]][:CORA_EDGES - len(match)]
+    edges = rng.permutation(np.concatenate([match, extra]))
+    n_tr, n_va = round(0.85 * CORA_EDGES), round(0.05 * CORA_EDGES)
+    splits = {"train_pos": edges[:n_tr], "valid_pos": edges[n_tr:n_tr + n_va],
+              "test_pos": edges[n_tr + n_va:]}
+    splits["valid_neg"] = rng.integers(0, n, (n_va, 2))
+    splits["test_neg"] = rng.integers(0, n, (len(splits["test_pos"]), 2))
+    d = os.path.join(root, "cora")
+    os.makedirs(d)
+    for name, arr in splits.items():
+        with open(os.path.join(d, f"{name}.txt"), "w") as f:
+            f.writelines(f"{a}\t{b}\n" for a, b in arr)
+    feats = (rng.random((n, CORA_FEATS)) < 0.0127).astype(np.float32)
+    torch.save({"entity_embedding": torch.from_numpy(feats)},
+               os.path.join(d, "gnn_feature"))
+    hd = os.path.join(root, "heart", "cora")
+    os.makedirs(hd)
+    for split in ("valid", "test"):
+        pos = splits[f"{split}_pos"]
+        neg = np.stack([np.repeat(pos[:, :1], CORA_HEART_NEGS, 1),
+                        rng.integers(0, n, (len(pos), CORA_HEART_NEGS))], -1)
+        np.save(os.path.join(hd, f"heart_{split}_samples.npy"), neg)
+    return {k: len(v) for k, v in splits.items()}
+
+
+def phase_cli_cora_heart(dev, card, tabs):
+    """Phase 13: ``--config cora-heart`` through the CLI for one run of one
+    epoch with one eval (--eval_steps 1; the config's 5 would leave one
+    epoch unevaluated) on a Cora-sized Planetoid + HeaRT fixture
+    (_write_cora_like): dim 256, 1 GCN layer without LayerNorm and ReLU,
+    eps 1e-7, rows 3-5 at dh = 256 in f32; the HeaRT MRR in [0, 1] and
+    the launches as predicted; then rows 4-5 and one training step
+    against their plain versions at the path's shapes, as phase 12."""
+    from lpformer_tpu_torch.cli import run
+
+    t = tabs["classic"]
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "data")
+        sizes = _write_cora_like(data)
+        argv = ["--config", "cora-heart", "--data-dir", data, "--runs", "1",
+                "--epochs", "1", "--eval_steps", "1"]
+        args = run.apply_config(run.build_parser(), argv)
+        os.chdir(tmp)
+        try:
+            counters = _zeroed(tabs)
+            torch.cuda.reset_peak_memory_stats()
+            with _recording(run, "load_dataset", []) as kept:
+                _, out, wall = _cli(argv)
+        finally:
+            os.chdir(cwd)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    budgets = tuple(int(x) for x in _printed(
+        r"cn=(\d+) onehop=(\d+) non1hop=(\d+)", out, "budgets"))
+    steps = -(-sizes["train_pos"] // args.batch_size)
+    n_va, n_te = sizes["valid_pos"], sizes["test_pos"]
+    eval_batches = sum(-(-m // args.test_batch_size) for m in (
+        n_va, n_va, n_te, n_va * CORA_HEART_NEGS, n_te * CORA_HEART_NEGS))
+    metrics = _printed_metrics(out)
+    log(f"phase 13 (cora-heart): splits {sizes}, budgets {budgets}, "
+        f"{steps} steps of {args.batch_size}, {eval_batches} eval batches "
+        f"of {args.test_batch_size}; main() {wall:.1f} s, peak memory "
+        f"{peak:.2f} GiB; {metrics}  [{card}]")
+    want = dict.fromkeys(counters, 0)
+    want[t["fwd_entry"][0]] = (2 * steps + eval_batches) * args.tlayers
+    want[t["bwd_entry"][0]] = 2 * steps * args.tlayers
+    want["scatter_rows_add"] = 2 * steps * args.tlayers
+    _check_launches("phase 13", counters, want, card)
+    if list(metrics) != ["MRR"] or not all(
+            0.0 <= x <= 1.0 for x in metrics["MRR"]):
+        raise AssertionError(f"phase 13 metrics {metrics}")
+    ds = kept.pop()
+    cfg = run.build_config(args, ds)
+    _hold_path_kernels(dev, tabs, "cora-heart CLI", cfg, args)
+    _step_pair(dev, ds, "classic (cora-heart CLI)", tabs, cfg,
+               args.batch_size)
+    del ds
+    torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--collab-scale", type=float, default=REHEARSAL_SCALE,
+                    help="scripts/make_rehearsal_npz.py --scale of phase "
+                    "12's npz (1.0: ogbl-collab's size)")
+    ap.add_argument("--deterministic-ab", action="store_true",
+                    help="time phase 12's step with torch's deterministic "
+                    "algorithms on and off, and trace what they swap")
+    opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
@@ -1789,6 +2318,14 @@ def main() -> int:
     phase_citation2_eval(dev, card, ds, tabs, cfg, batch)
     stamp("citation2-like eval")
     del ds
+    torch.cuda.empty_cache()
+
+    phase_graft_entry(dev, tabs)
+    phase_cli_collab(dev, card, tabs, opts.collab_scale,
+                     opts.deterministic_ab)
+    stamp("the CLI on the collab-scale npz (phase 12)")
+    phase_cli_cora_heart(dev, card, tabs)
+    stamp("the CLI on a Cora-sized HeaRT fixture (phase 13)")
 
     for e, path in entries:
         e["launches"] = launches[path][e["name"]]

@@ -12,12 +12,15 @@ Andersen push per source node with the stopping rule
     never a silent fallback. (``native/``'s own Makefile is not run: it
     writes the tracked ``native/libppr_push.so``.)
   * ``method="numpy"``: the pure-Python push, for tests and tiny graphs.
+
+``get_ppr`` caches the matrix on disk in the JAX package's layout and npz
+keys, so a cache written by either package is read by the other.
 """
 from __future__ import annotations
 
 import ctypes
 import os
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -159,3 +162,51 @@ def ppr_push_csr(
         weights=out_vals[order],
         num_nodes=num_nodes,
     )
+
+
+def get_ppr(
+    dataset: str,
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    num_nodes: int,
+    alpha: float = 0.15,
+    eps: float = 1e-4,
+    is_val: bool = False,
+    cache_dir: Optional[str] = None,
+    method: str = "native",
+) -> CSRGraph:
+    """Load the PPR matrix from the cache, or compute and cache it.
+
+    The cache layout mirrors the reference's
+    (``node_subsets/ppr/{dataset}/sparse_adj-{alpha}_eps-{eps}[_val]``,
+    reference: src/util/calc_ppr_scores.py:249-267, relative to the
+    working directory unless ``cache_dir`` is given) as an npz of
+    ``indptr``, ``indices``, ``weights`` and ``num_nodes``.
+    """
+    if cache_dir is None:
+        cache_dir = os.path.join("node_subsets", "ppr", dataset)
+    os.makedirs(cache_dir, exist_ok=True)
+    alpha_str = str(alpha).replace(".", "")
+    eps_str = str(eps).replace(".", "")
+    suffix = "_val" if is_val else ""
+    path = os.path.join(
+        cache_dir, f"sparse_adj-{alpha_str}_eps-{eps_str}{suffix}.npz"
+    )
+    if os.path.isfile(path):
+        with np.load(path) as z:
+            return CSRGraph(
+                indptr=z["indptr"],
+                indices=z["indices"],
+                weights=z["weights"],
+                num_nodes=int(z["num_nodes"]),
+            )
+    csr = ppr_push_csr(edge_src, edge_dst, num_nodes, alpha, eps,
+                       method=method)
+    np.savez_compressed(
+        path,
+        indptr=csr.indptr,
+        indices=csr.indices,
+        weights=csr.weights,
+        num_nodes=np.int64(num_nodes),
+    )
+    return csr

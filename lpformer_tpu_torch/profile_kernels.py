@@ -2,7 +2,8 @@
 the card, each against its yardsticks, in CUDA-event time and in traced
 device time.
 
-    python -m lpformer_tpu_torch.profile_kernels [--link | --kinks]
+    python -m lpformer_tpu_torch.profile_kernels [--link | --kinks |
+                                                  --cli-widths]
 
 (``--link``: the per-link attention pair alone; ``--kinks``: item 4
 alone.)
@@ -40,6 +41,18 @@ alone.)
    dkeys once more with its elements at the leaky ReLU's kink held to an
    f64 witness (``measure.kink_exempt``). A measurement: nothing is held
    to a bound.
+
+5. With ``--cli-widths``, ``ops/pe_attention.py``'s backward in f32 at
+   the classic blocks the CLI's configs measure (collab 32 | 96 | 32 at
+   O = dh = 128, B 4096 and 24,000; cora-heart 64 | 32 | 32 at O = dh =
+   256, B 512) beside the collab-like classic 64 | 128 | 128 at B 4096
+   and 24,000: each output's error against the plain version, beside
+   three witnesses of the plain version's own rounding: itself with every
+   valid slot's PPR values one ulp up, itself summed over other chunks of
+   links, and both the kernel's and its own distance to the same math
+   with every sum over slots taken in f64 (``measure.classic_bwd_f64``); dkeys
+   once more with its elements at the leaky ReLU's kink held to an f64
+   witness. A measurement: nothing is held to a bound.
 
 Items 1-3 hold each result to its plain version first (the lookup bit for
 bit).
@@ -367,6 +380,51 @@ def kink_report(card, dev):
             torch.cuda.empty_cache()
 
 
+CLI_WIDTHS = (("collab-like classic", (64, 128, 128), 128, 4096),
+              ("collab-like classic", (64, 128, 128), 128, 24000),
+              ("collab CLI", (32, 96, 32), 128, 4096),
+              ("collab CLI", (32, 96, 32), 128, 24000),
+              ("cora-heart CLI", (64, 32, 32), 256, 512))
+
+
+def cli_widths_report(card, dev):
+    """Item 5 of the module's docstring."""
+    from lpformer_tpu_torch.ops import pe_attention as pa
+
+    bwd_plain = pa.fused_pe_link_attention_bwd_plain
+    weights = BWD_NAMES[2:7]
+    for label, widths, od, b in CLI_WIDTHS:
+        a = measure.bwd_inputs(measure.classic_kernel_inputs(
+            dev, torch.float32, b=b, widths=widths, o=od, dh=od))
+        up = torch.tensor(float("inf"), device=dev)
+        nudged = {n: torch.where(a["valid"], torch.nextafter(a[n], up),
+                                 a[n]) for n in ("ps", "pt")}
+        got = pa.fused_pe_link_attention_bwd(**a)
+        want = measure.in_link_chunks(bwd_plain, a, 2)
+        moved = measure.in_link_chunks(bwd_plain, dict(a, **nudged), 2)
+        other = measure.in_link_chunks(bwd_plain, a, 2, step=-(-b // 7))
+        exact = measure.in_link_chunks(measure.classic_bwd_f64, a, 0)[:5]
+        dkeys, n_kink = measure.kink_exempt(a, got[0], want[0], 1e-4)
+
+        def fmt(xs, ref=want, names=BWD_NAMES):
+            return ", ".join(f"{n} {r[0]:.2e}/{r[1]:.2e}" for n, r in zip(
+                names, (_rel(x, y) for x, y in zip(xs, ref))))
+
+        w = slice(2, 7)
+        print(f"cli widths f32 {label} (B={b} widths={widths} O=dh={od}, "
+              f"{int(a['valid'].sum())} valid slots) backward (max/mean rel "
+              f"err): kernel vs plain {fmt(got)}; plain one ulp up vs plain "
+              f"{fmt(moved)}; plain in 7 chunks of links vs plain "
+              f"{fmt(other)}; against the f64 sums: kernel "
+              f"{fmt(got[w], exact, weights)}, plain "
+              f"{fmt(want[w], exact, weights)}; kernel dkeys with {n_kink} "
+              f"elements at the kink held to the f64 witness "
+              f"{_rel(dkeys, want[0])[0]:.2e}/{_rel(dkeys, want[0])[1]:.2e}"
+              f"  [{card}]", flush=True)
+        del a, got, want, moved, other, exact, dkeys
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
     dev = resolve_device()
@@ -377,6 +435,9 @@ def main(argv=None) -> None:
         return
     if "--kinks" in args:
         kink_report(card, dev)
+        return
+    if "--cli-widths" in args:
+        cli_widths_report(card, dev)
         return
     os.environ.pop("LPFORMER_FUSED_LOOKUP", None)   # the search route below
     ids, ct, n, live = measure.scatter_inputs(dev)

@@ -279,13 +279,13 @@ def plain_links(a):
     return max(1, min(b, PLAIN_ELEMS // (c * max(o, dh))))
 
 
-def in_link_chunks(fn, a, n_per_link):
-    """``fn(**a)`` in chunks of ``plain_links(a)`` links: the inputs named in
-    PER_LINK are cut along their first axis and the rest passed whole; of
-    the results, the first ``n_per_link`` (one row per link) are
-    concatenated and the others (sums over links) added. One call when the
-    shape fits."""
-    b, step = a["keys"].shape[0], plain_links(a)
+def in_link_chunks(fn, a, n_per_link, step=None):
+    """``fn(**a)`` in chunks of ``step`` (default ``plain_links(a)``) links:
+    the inputs named in PER_LINK are cut along their first axis and the
+    rest passed whole; of the results, the first ``n_per_link`` (one row
+    per link) are concatenated and the others (sums over links) added. One
+    call when the shape fits."""
+    b, step = a["keys"].shape[0], step or plain_links(a)
     if step >= b:
         return fn(**a)
     parts = [fn(**{n: v[lo:lo + step] if n in PER_LINK else v
@@ -317,14 +317,70 @@ def bwd_inputs(a, seed=1):
     return dict(fwd, m=m, l=l, g_out=g_out, delta=delta)
 
 
+def classic_bwd_f64(keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att,
+                    m, l, g_out, delta, class_widths):
+    """The weight grads of ``fused_pe_link_attention_bwd_plain`` (dw1cat,
+    dg, db, dw2, dcb) from its own f32 per-slot terms, each sum over slots
+    taken in f64, then the same five sums of the terms' magnitudes: a
+    witness of the exact sums and of how far any order of f32 additions
+    may move them (a chain of n additions errs by at most n 2^-24 of the
+    magnitudes' sum). All ten in f64."""
+    from lpformer_tpu_torch.ops import pe_attention as pa
+    from lpformer_tpu_torch.ops.pe_attention_mixed import (
+        attend_backward, ln_backward,
+    )
+
+    k_n, _, dh = w1.shape
+    o = keys.shape[-1]
+    blocks = pa._pe_blocks(ps, pt, w1, b1, g, b, w2f, class_widths)
+    xj = pa._keys_xj(keys, cbias, blocks, class_widths)
+    dxj, _, _ = attend_backward(xj, valid, q, att, m, l, g_out, delta)
+    dxc = dxj.to(w2f.dtype).float()
+    f64 = dict(dtype=torch.float64, device=keys.device)
+    shapes = ((3 * k_n, dh), (k_n, dh), (k_n, dh), (k_n, dh, o), (k_n, o))
+    out = [torch.zeros(s, **f64) for s in shapes + shapes]
+
+    def add(i, k, terms):
+        """out[i][k] += sum over slots of the terms, and out[i + 5][k] of
+        their magnitudes (terms: f32 [B, w, n] tensors, one per addend)."""
+        out[i][k] = sum(t.double().sum((0, 1)) for t in terms)
+        out[i + 5][k] = sum(t.double().abs().sum((0, 1)) for t in terms)
+
+    for (k, cols), (dirs, _, _) in zip(pa._blocks(class_widths), blocks):
+        (xa, ra, ya, ha), (xb, rb, yb, hb) = dirs
+        dx = dxc[:, cols].reshape(-1, o).double()
+        add(4, k, (dxj[:, cols],))
+        out[3][k] = (ha.reshape(-1, dh).double().T @ dx
+                     + hb.reshape(-1, dh).double().T @ dx)
+        out[8][k] = (ha.reshape(-1, dh).double().abs().T @ dx.abs()
+                     + hb.reshape(-1, dh).double().abs().T @ dx.abs())
+        dhh = (dxc[:, cols].reshape(-1, o) @ w2f[k].float().T).reshape(
+            ha.shape)
+        dya, dyb = dhh * (ya > 0), dhh * (yb > 0)
+        add(1, k, (dya * xa, dyb * xb))
+        add(2, k, (dya, dyb))
+        dpa = ln_backward(dya, xa, ra, g[k])
+        dpb = ln_backward(dyb, xb, rb, g[k])
+        p0, p1 = ps[:, cols, None], pt[:, cols, None]
+        w1s = torch.zeros((3, dh), **f64), torch.zeros((3, dh), **f64)
+        for j, terms in enumerate(((p0 * dpa, p1 * dpb), (p1 * dpa, p0 * dpb),
+                                   (dpa, dpb))):
+            w1s[0][j] = sum(t.double().sum((0, 1)) for t in terms)
+            w1s[1][j] = sum(t.double().abs().sum((0, 1)) for t in terms)
+        for j in range(3):
+            out[0][j * k_n + k] = w1s[0][j]
+            out[5][j * k_n + k] = w1s[1][j]
+    return tuple(out)
+
+
 # Most dkeys elements past the tolerance that kink_exempt recomputes; more
 # than a handful is not the kink
 KINK_MAX = 1024
 
 
 def kink_exempt(a, got, want, tol):
-    """The combined PE+attention backward's dkeys ``got`` against its plain
-    version's ``want`` on the inputs ``a`` (``bwd_inputs``), with the
+    """A PE+attention backward's dkeys ``got`` (either table) against its
+    plain version's ``want`` on the inputs ``a`` (``bwd_inputs``), with the
     elements at the leaky ReLU's kink set aside. dkeys carries the slope
     lrelu'(xj q), 1 or 0.2, so where xj q lies within the rounding of xj
     of 0 the two sides may take different slopes (xj summed in another
@@ -345,7 +401,12 @@ def kink_exempt(a, got, want, tol):
     _, c, o = a["keys"].shape
     dh = a["w1"].shape[-1]
     lb, lc, lo = idx // (c * o), idx // o % c, idx % o
-    e = a["ecls"][lb, lc].long().clamp(0, a["w1"].shape[0] - 1)
+    if "ecls" in a:
+        e = a["ecls"][lb, lc].long().clamp(0, a["w1"].shape[0] - 1)
+    else:  # the classic table: a slot's class is its column's block
+        e = torch.repeat_interleave(
+            torch.arange(len(a["class_widths"]), device=idx.device),
+            torch.tensor(a["class_widths"], device=idx.device))[lc]
     f = {n: a[n].double()[e] for n in ("w1", "b1", "g", "b", "cbias")}
     w2 = a["w2f"].double()[e]                               # [n, dh, O]
     x0, x1 = a["ps"][lb, lc].double(), a["pt"][lb, lc].double()

@@ -41,10 +41,14 @@ def test_no_jax_imports_in_source():
 @pytest.mark.parametrize("module", [
     "ops/pe_attention_mixed.py", "ops/pe_attention.py", "ops/scatter.py",
     "ops/attention.py", "ops/lookup.py", "ops/search.py", "ops/_cuda.py",
+    "cli/run.py", "cli/import_reference.py", "data/ogb.py",
+    "data/planetoid.py", "utils/seed.py", "utils/interop.py",
+    "graft_entry.py",
 ])
 def test_kernel_modules_are_covered(module):
-    """Each module that holds a kernel wrapper is among the files checked
-    above and below, and imports neither jax nor lpformer_tpu."""
+    """Each module that holds a kernel wrapper, and the CLI, the dataset
+    readers and the utils they need, is among the files checked above and
+    below, and imports neither jax nor lpformer_tpu."""
     path = os.path.join(PKG, *module.split("/"))
     assert path in _port_files()
     assert not {"jax", "jaxlib", "lpformer_tpu"} & set(_imported_roots(path))
@@ -67,9 +71,11 @@ def test_importing_every_module_loads_no_jax():
 
 def test_entry_points_need_a_device_without_gpu(monkeypatch):
     from lpformer_tpu_torch import resolve_device
+    from lpformer_tpu_torch.cli import run as cli_run
     from lpformer_tpu_torch.data.synthetic import synthetic_dataset
     from lpformer_tpu_torch.models import link_transformer as lt
     from lpformer_tpu_torch.models.config import LPFormerConfig
+    from lpformer_tpu_torch.utils.interop import import_reference_state
     from lpformer_tpu_torch.utils.params import from_jax_opt_state
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -80,6 +86,13 @@ def test_entry_points_need_a_device_without_gpu(monkeypatch):
                          LPFormerConfig(budget_combined=8), 4)
     with pytest.raises(RuntimeError, match="no GPU"):
         synthetic_dataset(num_nodes=20, num_train=40, num_eval=4)
+    with pytest.raises(RuntimeError, match="no GPU"):
+        # the CLI's dataset, as main() reads it without --platform
+        cli_run.load_dataset(cli_run.apply_config(cli_run.build_parser(), [
+            "--data_name", "synthetic", "--syn-nodes", "20",
+            "--syn-edges", "40"]))
+    with pytest.raises(RuntimeError, match="no GPU"):
+        import_reference_state({"model": {}, "score_func": {}})
     with pytest.raises(RuntimeError, match="no GPU"):
         from_jax_opt_state({"count": 0, "m": [0.0], "v": [0.0],
                             "score_mask": [0.0]})

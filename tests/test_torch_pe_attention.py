@@ -33,6 +33,7 @@ from test_torch_pe_attention_mixed_bwd import (
 from lpformer_tpu.ops.pallas import pe_attention as jpa
 from lpformer_tpu_torch.ops import pe_attention as tpa
 from lpformer_tpu_torch.ops import pe_attention_mixed as tpam
+from lpformer_tpu_torch.utils import measure
 
 B, O, DH = 8, 16, 16
 ALIGNED = (16, 32, 32)      # one 16-slot TPU tile divides every width
@@ -366,3 +367,87 @@ def test_kernels_match_plain_on_card(bf16, o, dh, case):
     else:
         for x, y in zip(got + got_b, (out, m, l) + want_b):
             assert_close_card(x, y, tol)
+
+
+def _classic_xj(a, monkeypatch):
+    """The classic plain forward's xj [B, C, O] on the inputs ``a``."""
+    seen = []
+    attend = tpa.attend
+
+    def keep(xj, *rest):
+        seen.append(xj)
+        return attend(xj, *rest)
+
+    monkeypatch.setattr(tpa, "attend", keep)
+    tpa.fused_pe_link_attention_plain(**a)
+    monkeypatch.setattr(tpa, "attend", attend)
+    return seen[0]
+
+
+def test_kink_exempt_takes_the_classic_table(monkeypatch):
+    """As the combined table's test: a dkeys element of a slot in the
+    second class block, on either side of the leaky ReLU's kink, is found
+    and held to the witness with that block's encoder; an element moved
+    elsewhere stays."""
+    a = measure.classic_kernel_inputs(torch.device("cpu"), torch.float32,
+                                      b=8, widths=(8, 4, 4), o=16, dh=16)
+    a["valid"][:, 8] = True     # column 8 opens the second block
+    b0, c0 = 2, 8
+    o0 = int((a["att"][0] * a["q"][b0]).abs().argmax())
+    keys = {}
+    for sign in (1.0, -1.0):
+        k = a["keys"].clone()
+        k[b0, c0, o0] -= _classic_xj(a, monkeypatch)[b0, c0, o0]
+        for _ in range(64):
+            x = float(_classic_xj(dict(a, keys=k), monkeypatch)[b0, c0, o0])
+            if (x > 0) if sign > 0 else (x < 0):
+                break
+            k[b0, c0, o0] = torch.nextafter(k[b0, c0, o0],
+                                            torch.tensor(sign * 1e30))
+        assert abs(x) < 1e-6
+        keys[sign] = k
+    bi = measure.bwd_inputs(dict(a, keys=keys[1.0]))
+    want = tpa.fused_pe_link_attention_bwd_plain(**bi)[0]
+    got = tpa.fused_pe_link_attention_bwd_plain(
+        **dict(bi, keys=keys[-1.0]))[0]
+    lim = 1e-4 * float(want.abs().max())
+    assert float((got - want).abs()[b0, c0, o0]) > lim   # the slope flipped
+    got[(b0 + 1) % 8, 0, 0] += 1.0                      # not at a kink
+    moved = (got - want).abs() > lim
+    out, n = measure.kink_exempt(bi, got, want, 1e-4)
+    assert n == 1
+    assert float(out[b0, c0, o0]) == float(want[b0, c0, o0])
+    assert int(((out - want).abs() > lim).sum()) == int(moved.sum()) - 1
+
+
+def test_f64_witness_sums_the_plain_backwards_terms():
+    """measure.classic_bwd_f64: the plain backward's weight grads with the
+    sums over slots in f64 (equal to its f32 sums within their rounding),
+    and each sum's magnitudes at least the sum's magnitude. Measured over
+    those magnitudes, as chip_smoke.py holds row 5 at the CLI's shapes
+    (SUM_TOL 1e-3 on the max, SUM_TOL_MEAN 1e-5 on the mean), the plain
+    version's f32 sums stay under 1e-6 and 1e-7, and a backward that loses
+    0.1% of the valid slots goes past 1e-4 and 2e-4."""
+    a = measure.bwd_inputs(measure.classic_kernel_inputs(
+        torch.device("cpu"), torch.float32, b=2048, widths=(32, 96, 32),
+        o=32, dh=32))
+    plain = tpa.fused_pe_link_attention_bwd_plain(**a)[2:7]
+    wit = measure.classic_bwd_f64(**a)
+    drop = a["valid"] & (torch.rand(
+        a["valid"].shape, generator=torch.Generator().manual_seed(3)) < 1e-3)
+    lossy = tpa.fused_pe_link_attention_bwd_plain(
+        **dict(a, valid=a["valid"] & ~drop))[2:7]
+    assert int(drop.sum()) > 0
+    for want, got, mag, bad in zip(plain, wit[:5], wit[5:], lossy):
+        assert got.dtype == torch.float64 and got.shape == want.shape
+        np.testing.assert_allclose(got.float().numpy(), want.numpy(),
+                                   rtol=1e-5, atol=1e-6 * float(
+                                       want.abs().max()))
+        assert bool((mag >= got.abs() * (1 - 1e-12)).all())
+        assert float(mag.max()) > 0
+        mag = mag.clamp_min(1e-300)     # a dead hidden unit sums nothing
+        err, bad_err = (want.double() - got).abs(), (bad.double() - got).abs()
+        assert float((err / mag).max()) < 1e-6
+        assert float(err.mean() / mag.mean()) < 1e-7
+        assert float((bad_err / mag).max()) > 1e-4
+        assert float(bad_err.mean() / mag.mean()) > 2e-4
