@@ -59,6 +59,17 @@ and, on the collab-like combined table with LPFORMER_FUSED_LOOKUP=1:
 and the per-link attention op's own path:
   7. the bench's attention A/B (forward, and forward + backward) through
      fused_link_attention in f32 and bf16, with launches counted;
+and, on the collab-like dataset, the dense attention route:
+ 14. (a) for each table layout, use_pallas_attention=False: one step's
+     loss and gradients and one eval batch's scores against the kernel
+     route in f32 (STEP_F32_LOSS_TOL, STEP_F32_ROUTE_GRAD_TOL and
+     TOL[f32]), the bf16 step against itself
+     with row 3 plain (STEP_*), the bf16 gap to the kernel route logged;
+     an eval batch and 5 timed steps of each route (row 3 twice a step,
+     rows 1, 2, 4, 5 never, on the dense runs), with peak memory; (b)
+     num_heads=2 on the combined table (H*O 256): a step against plain row
+     3, 5 timed steps and the eval sweep with the trained parameters; (c)
+     test_by_cn_bins over the test split, the bins' counts adding up;
   8. HeaRT: the collab-like dataset with 100 negatives per eval positive,
      run_eval -> test_standard(heart=True) on the combined table: the
      per-positive MRR in [0, 1], the forward kernel's launches equal to
@@ -122,10 +133,12 @@ then graft_entry.entry()'s forward once (row 4), and the CLI,
      deterministic algorithms on against off (step medians by CUDA
      events, warnings, and the device kernels the flag swaps, from a
      trace of each);
- 13. ``--config cora-heart --runs 1 --epochs 1 --eval_steps 1`` on a
-     Planetoid + HeaRT fixture at Cora's published sizes: rows 3-5 at
-     dh = 256 in f32, the MRR in [0, 1], the launches as predicted; then
-     rows 4-5 and one step against their plain versions as in phase 12;
+ 13. ``--config cora-heart --runs 1 --epochs 1 --eval_steps 1 --save-as
+     --dump-att`` on a Planetoid + HeaRT fixture at Cora's published
+     sizes: rows 3-5 at dh = 256 in f32, the MRR in [0, 1], the launches
+     as predicted; the dump's dense-route call launching none of rows
+     1-5, and attention_weights.npz well formed; then rows 4-5 and one
+     step against their plain versions as in phase 12;
 then a "kernels:" summary line and a JSON line of per-kernel numbers (each
 kernel's launches from its path's run: rows 1-3 the collab-like combined
 train_loop, rows 4-5 the classic one, rows 6-7 phase 7, row 8 phase 6),
@@ -190,6 +203,19 @@ STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-3, 2e-2
 # differs, so BWD_TOL's f32 max bound holds for the loss's |difference|
 # and for every leaf's relative L2 error.
 STEP_F32_LOSS_TOL, STEP_F32_GRAD_TOL = 1e-4, 1e-4
+# The dense attention route against the kernel route in f32 (phase 14),
+# per leaf: both compute the same function, but not with the same f32
+# roundings (the dense route adds the PE and the node keys in another
+# order, so its h lies ulps away from the kernel route's everywhere), and
+# a ReLU whose input lies within rounding of 0 (score head, pairwise MLP,
+# GCN) takes the other slope on one side: one such flip moves every leaf
+# upstream of it. At the collab-like step the dense route reads 1.30e-4
+# against the kernel route and 1.38e-4 against an f64 run of itself
+# (the kernel route 9.4e-5), while the two routes' f32 scores agree to
+# 1.2e-7 (PERF.md §6, phase 14). A wrong route (a lost PE term or bias,
+# heads mixed up) moves leaves by 1e-2 or more, and the route's scores
+# are held to TOL[f32].
+STEP_F32_ROUTE_GRAD_TOL = 1e-3
 # grad_accum 2 against 1 in f32 (the ddi-like combined step), per leaf:
 # the micro-batches' GEMMs take half the rows, and cuBLAS rounds a row of
 # an [M/2, K] product otherwise than the same row of the [M, K] one (the
@@ -971,10 +997,11 @@ def _fresh_params(dev, cfg, in_dim):
 
 
 def _compare_steps(label, a, b, leaves_with_path, loss_tol=STEP_LOSS_TOL,
-                   grad_tol=STEP_GRAD_TOL):
+                   grad_tol=STEP_GRAD_TOL, hold=True):
     """(loss, grads) of step ``a`` against step ``b``: the loss's |diff|
     and every leaf's ||a - b|| / ||b|| within the tolerances, a's grads
-    finite; logs one line and returns whether the two are bit-equal."""
+    finite (with ``hold`` False: logged only); logs one line and returns
+    (bit-equal, loss |diff|, the largest leaf error)."""
     dl = abs(float(a[0]) - float(b[0]))
     rel = [float((x - y).norm() / y.norm().clamp_min(1e-30))
            for x, y in zip(a[1], b[1])]
@@ -982,27 +1009,34 @@ def _compare_steps(label, a, b, leaves_with_path, loss_tol=STEP_LOSS_TOL,
     equal = bool(torch.equal(a[0], b[0])) and all(
         torch.equal(x, y) for x, y in zip(a[1], b[1]))
     log(f"{label}: loss {float(a[0]):.6f} vs {float(b[0]):.6f} (|diff| "
-        f"{dl:.2e}, tol {loss_tol}); grad leaves {len(rel)}, max rel L2 err "
-        f"{max(rel):.2e} at {'/'.join(map(str, worst))} (median "
-        f"{statistics.median(rel):.2e}, tol {grad_tol}); bit-equal {equal}")
-    if (dl > loss_tol or max(rel) > grad_tol
-            or not all(bool(torch.isfinite(x).all()) for x in a[1])):
+        f"{dl:.2e}, tol {loss_tol if hold else 'none'}); grad leaves "
+        f"{len(rel)}, max rel L2 err {max(rel):.2e} at "
+        f"{'/'.join(map(str, worst))} (median {statistics.median(rel):.2e}, "
+        f"tol {grad_tol if hold else 'none'}); bit-equal {equal}")
+    if hold and (dl > loss_tol or max(rel) > grad_tol or not all(
+            bool(torch.isfinite(x).all()) for x in a[1])):
         raise AssertionError(f"{label} disagree")
-    return equal
+    return equal, dl, max(rel)
 
 
-def _step_pair(dev, ds, layout, tabs, cfg, batch, mask_input=False):
+def _step_pair(dev, ds, layout, tabs, cfg, batch, mask_input=False,
+               against=None, hold=True):
     """One training step, dropout off and fixed negatives, through the
     kernels and through the plain versions: the loss and every gradient
     leaf must agree (STEP_LOSS_TOL, STEP_GRAD_TOL; in f32 the STEP_F32
     pair). With ``mask_input`` the step propagates twice, the positive
-    half over the batch-masked weights."""
+    half over the batch-masked weights. With ``against`` (a config of the
+    same parameters, e.g. the other attention route) the second step runs
+    that config through the kernels instead; with ``hold`` False the pair
+    is logged and not held. Returns _compare_steps' result."""
     from lpformer_tpu_torch.ops import masking
     from lpformer_tpu_torch.train import optim, step as step_mod
 
-    nodrop = dataclasses.replace(cfg, dropout=0.0, gnn_drop=0.0,
-                                 att_drop=0.0, feat_drop=0.0, pred_drop=0.0)
-    params = _fresh_params(dev, nodrop, int(ds.graph.x.shape[1]))
+    def nodrop(c):
+        return dataclasses.replace(c, dropout=0.0, gnn_drop=0.0, att_drop=0.0,
+                                   feat_drop=0.0, pred_drop=0.0)
+
+    params = _fresh_params(dev, nodrop(cfg), int(ds.graph.x.shape[1]))
     leaves = optim.tree_leaves(params)
     pos = torch.as_tensor(ds.train_pos[:batch]).to(dev)
     neg = torch.randint(0, ds.num_nodes, (2, batch),
@@ -1014,36 +1048,42 @@ def _step_pair(dev, ds, layout, tabs, cfg, batch, mask_input=False):
                                         (ds.graph.edge_w > 0).float())
               if mask_input else None)
 
-    def loss_and_grads():
-        loss = step_mod.loss_fn(params, nodrop, ds.graph, pos[:, 0],
+    def loss_and_grads(c):
+        loss = step_mod.loss_fn(params, nodrop(c), ds.graph, pos[:, 0],
                                 pos[:, 1], neg[0], neg[1], w, mr, None,
                                 prop_w, mask_input)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
-    loss_k, grads_k = loss_and_grads()
-    restore = _plain_training_path(tabs)
-    try:
-        loss_p, grads_p = loss_and_grads()
-    finally:
-        restore()
-    _compare_steps(
+    loss_k, grads_k = loss_and_grads(cfg)
+    if against is None:
+        restore = _plain_training_path(tabs)
+        try:
+            loss_p, grads_p = loss_and_grads(cfg)
+        finally:
+            restore()
+        what = "kernels vs plain"
+    else:
+        loss_p, grads_p = loss_and_grads(against)
+        what = "vs the same step through the kernel route"
+    return _compare_steps(
         f"train step {layout} (dim {cfg.dim}, batch {batch}, "
-        f"{cfg.matmul_dtype}{', mask_input' if mask_input else ''}) kernels "
-        f"vs plain", (loss_k, grads_k), (loss_p, grads_p),
+        f"{cfg.matmul_dtype}{', mask_input' if mask_input else ''}) {what}",
+        (loss_k, grads_k), (loss_p, grads_p),
         optim.tree_leaves_with_path(params),
         *((STEP_LOSS_TOL, STEP_GRAD_TOL) if cfg.mm_dtype
-          else (STEP_F32_LOSS_TOL, STEP_F32_GRAD_TOL)))
+          else (STEP_F32_LOSS_TOL, STEP_F32_GRAD_TOL)), hold=hold)
 
 
 def _timed_steps(dev, card, ds, layout, cfg, batch, steps, skip=2,
-                 mask_input=False):
+                 mask_input=False, stats=None):
     """``steps`` training steps with the preset's dropouts through the
     functions train_loop's step runs (masking, loss_fn, backward, the
     fused optimizer; with ``mask_input`` the masked propagation weights
     and two propagations), CUDA events around the forward, backward and
     optimizer; logs the medians over the steps after the first ``skip``
     and the peak memory, and returns (every step's loss, the median step
-    ms)."""
+    ms); ``stats``, a dict, gets the medians, the peak (GiB) and the
+    trained parameters too."""
     from lpformer_tpu_torch.ops import masking
     from lpformer_tpu_torch.train import optim, step as step_mod
 
@@ -1088,6 +1128,10 @@ def _timed_steps(dev, card, ds, layout, cfg, batch, steps, skip=2,
     fwd, bwd, upd_ms = (statistics.median(x[j] for x in times)
                         for j in range(3))
     total = statistics.median(sum(x) for x in times)
+    if stats is not None:
+        stats.update(forward=fwd, backward=bwd, optimizer=upd_ms, step=total,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     params=params)
     log(f"train step {layout} (dim {cfg.dim}; median of {len(times)}, "
         f"batch {batch}): {total:.3f} ms = forward {fwd:.3f} + backward "
         f"{bwd:.3f} + optimizer {upd_ms:.3f}; {batch / total * 1e3:.0f} "
@@ -1769,6 +1813,233 @@ def phase_ddi_grad_accum(dev, card, ds, tabs):
                 raise AssertionError(f"grad_accum {ga} ({label}): launches "
                                      f"{out[ga][4:]}, not {want}")
 
+def _pe_rows_quiet(label, counters, tabs, want_scatter, card):
+    """The launch counts of a dense-route run: rows 1, 2, 4 and 5 (the
+    PE+attention pairs), and every other kernel but the scatter, at 0;
+    the scatter at ``want_scatter``."""
+    want = dict.fromkeys(counters, 0)
+    want["scatter_rows_add"] = want_scatter
+    _check_launches(label, counters, want, card)
+
+
+def _dense_scores_vs_kernel(dev, ds, cfg, kernel_cfg, links, label, card):
+    """One batch of eval links scored in f32 through the dense route and
+    through the kernel route, on the same parameters: max and mean |diff|
+    within TOL[f32]."""
+    from lpformer_tpu_torch.evalx import harness
+    from lpformer_tpu_torch.models import link_transformer as lt
+
+    params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
+                              in_dim=int(ds.graph.x.shape[1]), device=dev)
+    tl = torch.as_tensor(links, dtype=torch.int64, device=dev)
+    src, tgt = tl[:, 0], tl[:, 1]
+    with torch.no_grad():
+        X = lt.propagate(params, cfg, ds.graph)
+        dense, kern = (harness.make_score_fn(c)(params, ds.graph, X, src,
+                                                tgt)
+                       for c in (cfg, kernel_cfg))
+    err = (dense - kern).abs()
+    tol, tol_mean = TOL[torch.float32]
+    log(f"scores {label} f32 dense vs kernel route ({len(links)} links): "
+        f"max abs err {float(err.max()):.3e}, mean {float(err.mean()):.3e} "
+        f"(tol {tol}/{tol_mean})  [{card}]")
+    if (not bool(torch.isfinite(dense).all()) or float(err.max()) > tol
+            or float(err.mean()) > tol_mean):
+        raise AssertionError(f"{label}: the dense route's scores disagree "
+                             f"with the kernel route's")
+
+
+def _to_f64(obj):
+    """A copy of a tensor, or of a (nested) dataclass, list, tuple or dict
+    of them, with every float32 tensor in float64."""
+    if torch.is_tensor(obj):
+        return obj.double() if obj.dtype == torch.float32 else obj
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_f64(x) for x in obj)
+    if isinstance(obj, dict):
+        return {k: _to_f64(v) for k, v in obj.items()}
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: _to_f64(getattr(obj, f.name))
+            for f in dataclasses.fields(obj) if f.init})
+    return obj
+
+
+def _route_pair_f32(dev, ds, tabs, layout, kernel, batch):
+    """One f32 training step (dropout off, fixed negatives) through the
+    dense route against the kernel route on the same parameters: the loss
+    within STEP_F32_LOSS_TOL, every leaf within STEP_F32_ROUTE_GRAD_TOL;
+    and, logged only, each route against an f64 run of the dense route
+    (its gathers' backward sums in f32, as everywhere)."""
+    from lpformer_tpu_torch.ops import gather, masking
+    from lpformer_tpu_torch.train import optim, step as step_mod
+
+    kernel = dataclasses.replace(kernel, matmul_dtype="float32", dropout=0.0,
+                                 gnn_drop=0.0, att_drop=0.0, feat_drop=0.0,
+                                 pred_drop=0.0)
+    dense = dataclasses.replace(kernel, use_pallas_attention=False)
+    params = _fresh_params(dev, kernel, int(ds.graph.x.shape[1]))
+    paths = optim.tree_leaves_with_path(params)
+    pos = torch.as_tensor(ds.train_pos[:batch]).to(dev)
+    neg = torch.randint(0, ds.num_nodes, (2, batch),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    w = torch.ones(batch, device=dev)
+    mr = masking.batch_mask_ranks(ds.graph.adj_rows, pos[:, 0], pos[:, 1],
+                                  ds.mask_mult_device, weight=w)
+
+    def step(cfg, graph, p, weight):
+        leaves = optim.tree_leaves(p)
+        loss = step_mod.loss_fn(p, cfg, graph, pos[:, 0], pos[:, 1], neg[0],
+                                neg[1], weight, mr, None)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    got = {"kernel": step(kernel, ds.graph, params, w),
+           "dense": step(dense, ds.graph, params, w)}
+    label = f"train step {layout} (dim {kernel.dim}, batch {batch}, float32)"
+    _compare_steps(f"{label} dense vs kernel route", got["dense"],
+                   got["kernel"], paths, STEP_F32_LOSS_TOL,
+                   STEP_F32_ROUTE_GRAD_TOL)
+    restore = _plain_training_path(tabs)
+    saved = gather._SCATTER_MIN_ROWS
+    gather._SCATTER_MIN_ROWS = 1 << 62      # index_add_ takes float64 ct
+    try:
+        p64 = optim.tree_map(
+            lambda t: t.detach().double().requires_grad_(True), params)
+        wit = step(dense, _to_f64(ds.graph), p64, w.double())
+    finally:
+        gather._SCATTER_MIN_ROWS = saved
+        restore()
+    for route in ("dense", "kernel"):
+        _compare_steps(f"{label} {route} route vs an f64 dense run",
+                       (got[route][0].double(),
+                        [g.double() for g in got[route][1]]),
+                       wit, paths, hold=False)
+    del got, wit, p64
+
+
+def phase_dense(dev, card, ds, tabs, batch, steps=5):
+    """Phase 14, the dense attention route (use_pallas_attention=False, or
+    num_heads > 1) on the collab-like dataset at its full widths:
+      (a) for each table layout, the dense route against the kernel route
+          in f32 (one step's loss and gradients, STEP_F32_ROUTE_GRAD_TOL;
+          one eval batch's scores, TOL[f32]),
+          against itself with row 3 swapped for its plain version in bf16,
+          and its bf16 gap to the kernel route (logged, not held); one
+          eval batch and ``steps`` timed steps of each route, the dense
+          runs launching row 3 twice a step and rows 1, 2, 4 and 5 never;
+      (b) num_heads=2 on the combined table (H*O = 256, pairwise width
+          260): a step against plain row 3, ``steps`` timed steps and the
+          eval sweep over the preset's eval links with the trained
+          parameters (losses finite, metrics in [0, 1], launches as (a));
+      (c) test_by_cn_bins over the test split with (b)'s parameters: the
+          bins' counts add up to the test positives whose CN count lies
+          in the bins.
+    Returns {route: step stats} for the summary line."""
+    from lpformer_tpu_torch.evalx import analysis, harness
+
+    summary = {}
+    links = _eval_links(ds, batch)
+    f32 = dict(matmul_dtype="float32")
+    for layout, t in tabs.items():
+        kernel = t["cfg"]
+        dense = dataclasses.replace(kernel, use_pallas_attention=False)
+        _route_pair_f32(dev, ds, tabs, layout, kernel, batch)
+        _dense_scores_vs_kernel(dev, ds, dataclasses.replace(dense, **f32),
+                                dataclasses.replace(kernel, **f32), links,
+                                layout, card)
+        torch.cuda.empty_cache()
+        _step_pair(dev, ds, f"{layout}, dense route", tabs, dense, batch)
+        _, dl, gap = _step_pair(dev, ds, f"{layout}, dense route (bf16 gap)",
+                                tabs, dense, batch, against=kernel,
+                                hold=False)
+        torch.cuda.empty_cache()
+        counters = _zeroed(tabs)
+        ms = {"dense": _eval_batch_ms(
+            dev, ds, dense, links, lambda: _pe_rows_quiet(
+                f"phase 14 {layout} dense eval batch", counters, tabs, 0,
+                card)),
+              "kernel": _eval_batch_ms(dev, ds, kernel, links)}
+        for route, cfg in (("dense", dense), ("kernel", kernel)):
+            st = {}
+            counters = _zeroed(tabs)
+            _timed_steps(dev, card, ds, f"{layout}, {route} route", cfg,
+                         batch, steps + 2, stats=st)
+            if route == "dense":
+                _pe_rows_quiet(f"phase 14 {layout} dense steps", counters,
+                               tabs, 2 * (steps + 2) * cfg.trans_layers,
+                               card)
+            st.pop("params")
+            summary[f"{layout} {route}"] = dict(st, eval_ms=ms[route])
+            torch.cuda.empty_cache()
+        summary[f"{layout} dense"].update(bf16_loss_gap=dl,
+                                          bf16_grad_gap=gap)
+
+    # (b) two heads on the combined table
+    cfg2 = dataclasses.replace(tabs["combined"]["cfg"], num_heads=2)
+    _step_pair(dev, ds, "combined, 2 heads (dense route)", tabs, cfg2, batch)
+    st = {}
+    counters = _zeroed(tabs)
+    losses, _ = _timed_steps(dev, card, ds, "combined, 2 heads", cfg2, batch,
+                             steps + 2, stats=st)
+    _pe_rows_quiet("phase 14 two-head steps", counters, tabs,
+                   2 * (steps + 2) * cfg2.trans_layers, card)
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        raise AssertionError("a two-head training loss is not finite")
+    params = st.pop("params")
+    counters = _zeroed(tabs)
+    t0 = time.perf_counter()
+    res = harness.test_standard(params, cfg2, ds, batch_size=batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    log(f"test_standard combined, 2 heads: {wall * 1e3:.1f} ms wall; "
+        + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}/{v[2]:.4f}"
+                    for k, v in res.items()) + f"  [{card}]")
+    _pe_rows_quiet("phase 14 two-head eval sweep", counters, tabs, 0, card)
+    for k, v in res.items():
+        if not all(0.0 <= x <= 1.0 for x in v):
+            raise AssertionError(f"{k} out of range: {v}")
+    summary["combined 2 heads"] = dict(st, eval_ms=wall * 1e3)
+
+    # (c) Hits@100 by CN bin on the test split, (b)'s parameters
+    t0 = time.perf_counter()
+    bins = analysis.test_by_cn_bins(params, cfg2, ds, batch_size=batch)
+    wall = time.perf_counter() - t0
+    cn = analysis.compute_edge_cn(ds, np.asarray(ds.test_pos))
+    lo, hi = 0, float("inf")     # test_by_cn_bins' default outer edges
+    want_n = int(((cn >= lo) & (cn < hi)).sum())
+    log(f"test_by_cn_bins (collab-like test split, 2 heads): {bins}; "
+        f"{want_n} positives in the bins, {wall:.1f} s  [{card}]")
+    if (sum(v["n"] for v in bins.values()) != want_n
+            or not all(0.0 <= v["Hits@100"] <= 1.0 for v in bins.values())):
+        raise AssertionError(f"test_by_cn_bins: {bins}")
+    del params
+    torch.cuda.empty_cache()
+    return summary
+
+
+def _eval_batch_ms(dev, ds, cfg, links, check=None):
+    """One eval batch scored through ``cfg`` (finite scores of the right
+    shape), then its CUDA-event ms; ``check()`` runs between the two."""
+    from lpformer_tpu_torch.evalx import harness
+    from lpformer_tpu_torch.models import link_transformer as lt
+
+    params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
+                              in_dim=int(ds.graph.x.shape[1]), device=dev)
+    tl = torch.as_tensor(links, dtype=torch.int64, device=dev)
+    src, tgt = tl[:, 0], tl[:, 1]
+    with torch.no_grad():
+        X = lt.propagate(params, cfg, ds.graph)
+        fn = harness.make_score_fn(cfg)
+        scores = fn(params, ds.graph, X, src, tgt)
+        torch.cuda.synchronize()
+        if (scores.shape != (len(links),)
+                or not bool(torch.isfinite(scores).all())):
+            raise AssertionError("eval scores not finite")
+        if check is not None:
+            check()
+        return time_ms(lambda: fn(params, ds.graph, X, src, tgt), 5)
+
+
 # scripts/make_rehearsal_npz.py --scale of phase 12's npz by default (1.0:
 # ogbl-collab's 235,868 nodes and 1,179,052 train collaborations, whose
 # cold build of both PPRs took 340.6 s of the script's 1200; PERF.md §4)
@@ -2169,14 +2440,41 @@ def _write_cora_like(root, seed=0):
     return {k: len(v) for k, v in splits.items()}
 
 
+def _check_npz(npz, edges, c, card):
+    """attention_weights.npz as --dump-att writes it: keys edges, ids,
+    valid, alpha; edges the dumped links, the rest [len(edges), c]; alpha
+    exactly 0 on invalid slots and summing to 1 within 1e-5 over each
+    link's valid ones."""
+    shapes = {k: v.shape for k, v in npz.items()}
+    log(f"attention_weights.npz: {shapes}  [{card}]")
+    if (sorted(npz) != ["alpha", "edges", "ids", "valid"]
+            or not np.array_equal(npz["edges"], edges)
+            or not shapes["ids"] == shapes["valid"] == shapes["alpha"]
+            == (len(edges), c)):
+        raise AssertionError("attention_weights.npz: wrong keys or shapes")
+    valid, alpha = npz["valid"], npz["alpha"]
+    has = valid.any(1)
+    err = float(np.abs(alpha[has].sum(1) - 1.0).max())
+    off = float(np.abs(alpha[~valid]).max(initial=0.0))
+    log(f"attention_weights.npz: {int(has.sum())} of {len(edges)} links "
+        f"with a valid slot, {int(valid.sum())} valid slots; max |sum alpha "
+        f"- 1| {err:.2e} (tol 1e-5), max |alpha| on invalid slots {off}")
+    if not has.any() or not err <= 1e-5 or off != 0.0:
+        raise AssertionError("attention_weights.npz: alpha malformed")
+
+
 def phase_cli_cora_heart(dev, card, tabs):
     """Phase 13: ``--config cora-heart`` through the CLI for one run of one
     epoch with one eval (--eval_steps 1; the config's 5 would leave one
     epoch unevaluated) on a Cora-sized Planetoid + HeaRT fixture
     (_write_cora_like): dim 256, 1 GCN layer without LayerNorm and ReLU,
-    eps 1e-7, rows 3-5 at dh = 256 in f32; the HeaRT MRR in [0, 1] and
-    the launches as predicted; then rows 4-5 and one training step
-    against their plain versions at the path's shapes, as phase 12."""
+    eps 1e-7, rows 3-5 at dh = 256 in f32, with --save-as and --dump-att;
+    the HeaRT MRR in [0, 1] and the launches as predicted; the dump (one
+    dense-route call on the best checkpoint, which launches none of rows
+    1-5) writes attention_weights.npz: the first test_batch_size test
+    positives, alpha [B, C] 0 on invalid slots and summing to 1 on each
+    link's valid ones; then rows 4-5 and one training step against their
+    plain versions at the path's shapes, as phase 12."""
     from lpformer_tpu_torch.cli import run
 
     t = tabs["classic"]
@@ -2185,15 +2483,32 @@ def phase_cli_cora_heart(dev, card, tabs):
         data = os.path.join(tmp, "data")
         sizes = _write_cora_like(data)
         argv = ["--config", "cora-heart", "--data-dir", data, "--runs", "1",
-                "--epochs", "1", "--eval_steps", "1"]
+                "--epochs", "1", "--eval_steps", "1", "--save-as", "smoke",
+                "--dump-att", "--checkpoint-dir",
+                os.path.join(tmp, "checkpoints")]
         args = run.apply_config(run.build_parser(), argv)
         os.chdir(tmp)
+        dump = []
+        real_dump = run._dump_attention
+
+        def counted_dump(*a, **kw):
+            torch.cuda.synchronize()
+            before = {n: f.launches for n, f in counters.items()}
+            real_dump(*a, **kw)
+            torch.cuda.synchronize()
+            dump.append({n: f.launches - before[n]
+                         for n, f in counters.items()})
+
+        run._dump_attention = counted_dump
         try:
             counters = _zeroed(tabs)
             torch.cuda.reset_peak_memory_stats()
             with _recording(run, "load_dataset", []) as kept:
                 _, out, wall = _cli(argv)
+            with np.load(os.path.join(tmp, "attention_weights.npz")) as z:
+                npz = {k: z[k] for k in z.files}
         finally:
+            run._dump_attention = real_dump
             os.chdir(cwd)
     peak = torch.cuda.max_memory_allocated() / 2**30
     budgets = tuple(int(x) for x in _printed(
@@ -2217,6 +2532,12 @@ def phase_cli_cora_heart(dev, card, tabs):
         raise AssertionError(f"phase 13 metrics {metrics}")
     ds = kept.pop()
     cfg = run.build_config(args, ds)
+    log(f"phase 13 --dump-att call(s): launches {dump} (predicted one call, "
+        f"every count 0)  [{card}]")
+    if dump != [dict.fromkeys(counters, 0)]:
+        raise AssertionError(f"phase 13 --dump-att launches {dump}")
+    _check_npz(npz, ds.test_pos[:args.test_batch_size],
+               cfg.context.total_budget, card)
     _hold_path_kernels(dev, tabs, "cora-heart CLI", cfg, args)
     _step_pair(dev, ds, "classic (cora-heart CLI)", tabs, cfg,
                args.batch_size)
@@ -2280,6 +2601,16 @@ def main(argv=None) -> int:
         dev, card, ds, tabs, batch)}
     launches["attention A/B"] = phase_attention_ab(dev, card)
     stamp("lookup route and attention A/B")
+    dense = phase_dense(dev, card, ds, tabs, batch)
+    log(f"phase 14 summary (collab-like, batch {batch}): " + "; ".join(
+        f"{k}: step {v['step']:.3f} ms (forward {v['forward']:.3f}, "
+        f"backward {v['backward']:.3f}), peak {v['peak_gib']:.2f} GiB, eval "
+        f"batch {v['eval_ms']:.3f} ms" for k, v in dense.items())
+        + "; bf16 dense vs kernel gap: " + ", ".join(
+            f"{k.split()[0]} loss {v['bf16_loss_gap']:.2e} grads "
+            f"{v['bf16_grad_gap']:.2e}" for k, v in dense.items()
+            if "bf16_loss_gap" in v) + f"  [{card}]")
+    stamp("dense attention route (phase 14)")
     del ds
     torch.cuda.empty_cache()
 

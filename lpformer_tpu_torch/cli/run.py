@@ -4,12 +4,13 @@ package's CLI (counterpart of ``lpformer_tpu/cli/run.py``).
 The same flags, dests and defaults as ``lpformer_tpu.cli.run`` (reference
 src/run.py:150-211, plus the context budgets), and the same
 ``configs/*.json``. The device is CUDA unless ``--platform cpu`` asks
-for the CPU. The JAX package's TPU switches are accepted where they mean
-nothing here (``--jax-cache-dir``, ``--pallas-attention``: on CUDA the
-hand-written kernels always run); the paths the port does not have yet
-raise ``NotImplementedError`` before any data is read (``ROADMAP.md``
-Queue 1: the dense attention route and ``--dump-att`` are item 7, the
-mesh and multi-host flags item 8).
+for the CPU. ``--jax-cache-dir`` is accepted and means nothing here;
+``--no-pallas-attention`` takes the dense attention route
+(``models/link_transformer.py``), and ``--dump-att`` with ``--save-as``
+writes the best checkpoint's attention weights over the test positives to
+``attention_weights.npz``. The mesh and multi-host flags, whose paths the
+port does not have yet, raise ``NotImplementedError`` before any data is
+read (``ROADMAP.md`` Queue 1 item 8).
 
 Usage:
   python -m lpformer_tpu_torch.cli.run --config ogbl-collab-existing
@@ -116,10 +117,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="checkpoint path to resume training from")
     p.add_argument("--pallas-attention", dest="pallas_attention",
                    action="store_true", default=None,
-                   help="accepted: on CUDA the fused kernels always run")
+                   help="the fused PE+attention op (the default where "
+                        "num_heads == 1)")
     p.add_argument("--no-pallas-attention", dest="pallas_attention",
                    action="store_false",
-                   help="the dense-masked attention route: not ported yet")
+                   help="the dense masked attention route")
     p.add_argument("--context-parallel", action="store_true",
                    help="not ported yet (a mesh path)")
     p.add_argument("--mesh", type=str, default=None,
@@ -137,8 +139,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--steps-per-call", type=int, default=1,
                    help="optimizer steps per call of the step loop")
     p.add_argument("--dump-att", action="store_true", default=False,
-                   help="not ported yet: dump attention weights over the "
-                        "test positives")
+                   help="after training, dump attention weights over the "
+                        "test positives to attention_weights.npz")
     # synthetic-dataset knobs (smoke tests / benches)
     p.add_argument("--syn-nodes", type=int, default=2000)
     p.add_argument("--syn-edges", type=int, default=10000)
@@ -160,16 +162,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def refuse_unported(args) -> None:
     """Raise for a flag whose path the port does not have yet."""
-    item7 = "ROADMAP.md Queue 1 item 7"
     item8 = "ROADMAP.md Queue 1 item 8 (parallel paths)"
-    if args.pallas_attention is False:
-        raise NotImplementedError(
-            f"--no-pallas-attention: the dense attention route is not "
-            f"ported yet ({item7})")
-    if args.dump_att:
-        raise NotImplementedError(
-            f"--dump-att: evalx/analysis.py and the dense return_weights "
-            f"route are not ported yet ({item7})")
     for dest in ("mesh", "context_parallel", "coordinator", "num_processes",
                  "process_id", "distributed"):
         if getattr(args, dest) not in (None, False):
@@ -297,6 +290,7 @@ def build_config(args, ds):
         budget_non1hop=budgets[2],
         budget_combined=bc,
         matmul_dtype=args.matmul_dtype,
+        use_pallas_attention=args.pallas_attention,
     )
 
 
@@ -383,7 +377,40 @@ def main(argv=None):
         grad_accum=args.grad_accum,
         steps_per_call=args.steps_per_call,
     )
-    return train_data(targs, cfg, ds)
+    result = train_data(targs, cfg, ds)
+    if args.dump_att and args.save_as:
+        _dump_attention(args, cfg, ds)
+    return result
+
+
+def _dump_attention(args, cfg, ds):
+    """--dump-att: the best checkpoint's attention weights over the first
+    ``--test-batch-size`` test positives, on the test graph (reference
+    run.py:193, layers.py:69-75), to ``attention_weights.npz`` in the
+    working directory: edges [B, 2], ids, valid and alpha [B, C] (alpha
+    averaged over the heads)."""
+    from lpformer_tpu_torch.evalx.analysis import attention_weights
+    from lpformer_tpu_torch.train.optim import tree_map
+    from lpformer_tpu_torch.utils import checkpoint as ckpt
+
+    path = os.path.join(
+        args.checkpoint_dir, args.data_name,
+        args.save_as + ("_seed-1" if args.runs > 1 else "") + ".ckpt",
+    )
+    state = ckpt.load_checkpoint(path)
+    if state is None:
+        print(f"--dump-att: no checkpoint at {path}")
+        return
+    dev = ds.graph.x.device
+    params = tree_map(lambda t: t.to(dev), state["params"])
+    edges = np.asarray(ds.test_pos)[: args.test_batch_size]
+    ids, valid, alpha = attention_weights(params, cfg, ds, edges,
+                                          test_set=True)
+    np.savez_compressed(
+        "attention_weights.npz", edges=edges, ids=ids, valid=valid,
+        alpha=alpha,
+    )
+    print(f"--dump-att: wrote attention_weights.npz for {len(edges)} edges")
 
 
 def eval_checkpoint(args, cfg, ds):

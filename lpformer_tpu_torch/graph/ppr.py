@@ -164,6 +164,23 @@ def ppr_push_csr(
     )
 
 
+def ppr_dense_oracle(
+    edge_src: np.ndarray,
+    edge_dst: np.ndarray,
+    num_nodes: int,
+    alpha: float = 0.15,
+) -> np.ndarray:
+    """Exact PPR in float64, [N, N] (row s is source s's vector):
+    P[s] = alpha (I - (1 - alpha) A^T D^-1)^-1 e_s, the fixed point of the
+    push recursion; a test oracle for small graphs (an O(N^3) inverse)."""
+    A = np.zeros((num_nodes, num_nodes), dtype=np.float64)
+    A[edge_src, edge_dst] = 1.0
+    deg = A.sum(axis=1)
+    dinv = np.where(deg > 0, 1.0 / np.maximum(deg, 1e-30), 0.0)
+    M = np.eye(num_nodes) - (1 - alpha) * (A.T * dinv[None, :])
+    return alpha * np.linalg.inv(M).T
+
+
 def get_ppr(
     dataset: str,
     edge_src: np.ndarray,

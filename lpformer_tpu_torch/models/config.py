@@ -1,8 +1,7 @@
 """Model configuration (counterpart of ``lpformer_tpu/models/config.py``).
 
 The fields the eval and training paths read, with the JAX package's names
-and defaults. The TPU-only switch ``use_pallas_attention`` is not here: on
-a CUDA tensor the port always runs the hand-written kernels.
+and defaults.
 """
 from __future__ import annotations
 
@@ -38,6 +37,14 @@ class LPFormerConfig:
     # "bfloat16": every matmul takes bf16 inputs and accumulates in f32
     # (nn/core.py:matmul), and the context key tables are bf16
     matmul_dtype: str = "float32"
+
+    # the fused PE + attention op for the pairwise block (the hand-written
+    # kernels on a CUDA tensor, their plain versions on a CPU tensor).
+    # None or True: the fused op wherever num_heads == 1 and no attention
+    # weights are asked for; False: the dense masked route
+    # (models/link_transformer.py). The JAX package's None means "on a
+    # TPU only"; here the fused op is the default on every device
+    use_pallas_attention: "bool | None" = None
 
     # recompute the pairwise block (context keys + attention layers) in
     # the backward instead of holding its [B, C, dim] activations

@@ -7,18 +7,28 @@
 The attention is GATv2-style over each link's context set, with
 symmetrised PPR positional encodings per node class (reference:
 src/models/link_transformer.py:132-211, src/modules/layers.py:193-224).
-It runs as ONE fused op over the context table, a hand-written CUDA
-kernel on a CUDA tensor and its plain torch version on a CPU tensor (the
-counterparts of the JAX package's Pallas kernels, which it switches on by
-itself on a TPU):
+It takes one of two routes, as the JAX package's does:
 
-  * the classic class-blocked table (``budget_combined=None``, the
-    default): ``ops/pe_attention.py``, with the blocks' widths;
-  * the combined class-tagged table: ``ops/pe_attention_mixed.py``, with
-    a per-slot encoder index.
+  * the fused op, ONE op over the context table that computes the PE
+    MLPs, the key projection and the masked attention: a hand-written
+    CUDA kernel on a CUDA tensor and its plain torch version on a CPU
+    tensor (the counterparts of the JAX package's Pallas kernels). The
+    classic class-blocked table (``budget_combined=None``, the default)
+    runs ``ops/pe_attention.py`` with the blocks' widths; the combined
+    class-tagged table ``ops/pe_attention_mixed.py`` with a per-slot
+    encoder index;
+  * the dense masked route (``_project_keys`` + ``_att_layer_apply``,
+    the JAX package's non-Pallas path, XLA there and plain torch here):
+    the [B, C, H*O] key table is materialised and H heads attend over it.
+
+The route is chosen by one rule and nothing else: the fused op when
+``cfg.use_pallas_attention`` is not False, ``cfg.num_heads == 1`` and no
+attention weights are asked for (``return_weights``); the dense route
+otherwise. No caught exception, failed build or device check sends a call
+to the dense route.
 
 Parameters are the JAX package's pytree as nested dicts of tensors
-(``utils/params.py``). ``num_heads > 1`` is not ported yet.
+(``utils/params.py``).
 
 Training (``train=True``) adds the reference's dropouts, drawn in a fixed
 order from one ``torch.Generator`` on the model's device: feat_drop on the
@@ -32,6 +42,7 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from lpformer_tpu_torch import resolve_device
@@ -45,6 +56,7 @@ from lpformer_tpu_torch.ops.pe_attention import fused_pe_link_attention
 from lpformer_tpu_torch.ops.pe_attention_mixed import (
     fused_pe_link_attention_mixed,
 )
+from lpformer_tpu_torch.ops.segment import masked_softmax
 
 
 def _att_layer_init(gen, in_ch, out_ch, heads, node_dim, device) -> Dict:
@@ -131,7 +143,7 @@ def _encoder_codes(cfg: LPFormerConfig):
     return pairs
 
 
-def _att_layer_apply(
+def _att_layer_apply_fused(
     lp: Dict, params: Dict, cfg: LPFormerConfig, edge_x: torch.Tensor,
     xj_node: torch.Tensor, ctx: ContextTables,
     gen: Optional[torch.Generator] = None, train: bool = False,
@@ -181,6 +193,128 @@ def _att_layer_apply(
     return nn.dropout(gen, out, cfg.dropout, train)
 
 
+def _fold_last(mlp_p: Dict, W: torch.Tensor) -> Dict:
+    """Compose an MLP's final (bare) linear with a following linear ``W``,
+    so ``mlp(x) @ W`` runs as one MLP whose output lands directly in the
+    projected space: the [B, C, dim] intermediate never exists. The
+    products keep the JAX dtype flow: ``w @ W`` in the operands' promoted
+    dtype (bf16 @ bf16 -> bf16 under matmul_dtype, summed in f32), and
+    ``b @ W`` in f32 (an f32 bias promotes)."""
+    layers = list(mlp_p["layers"])
+    w = layers[-1]["w"]
+    last = {"w": (w.float() @ W.float()).to(
+        torch.promote_types(w.dtype, W.dtype))}
+    if "b" in layers[-1]:
+        b = layers[-1]["b"]
+        last["b"] = (b.float() @ W.float()).to(
+            torch.promote_types(b.dtype, W.dtype))
+    layers[-1] = last
+    return dict(mlp_p, layers=layers)
+
+
+def _pos_encodings(
+    params: Dict, cfg: LPFormerConfig, ctx: ContextTables,
+    W_fold: Optional[torch.Tensor] = None, out_dtype=None,
+) -> torch.Tensor:
+    """Symmetric PPR encodings pe = g(ppr_s, ppr_t) + g(ppr_t, ppr_s), one
+    MLP per node class (reference: link_transformer.py:182-211). With
+    ``W_fold`` the result is pe @ W_fold, computed by folding W_fold into
+    each class MLP's final linear; ``out_dtype`` casts each block at
+    creation (bf16 key tables under ``matmul_dtype``). On the classic
+    table each class MLP runs over its own block of the table; on the
+    combined table every class MLP runs over the whole [B, C] table and
+    each slot's class selects."""
+    def sym(mlp_p, ps, pt):
+        if W_fold is not None:
+            mlp_p = _fold_last(mlp_p, W_fold)
+        a = nn.mlp_apply(mlp_p, torch.stack([ps, pt], dim=-1),
+                         mm_dtype=cfg.mm_dtype)
+        b = nn.mlp_apply(mlp_p, torch.stack([pt, ps], dim=-1),
+                         mm_dtype=cfg.mm_dtype)
+        out = a + b
+        return out if out_dtype is None else out.to(out_dtype)
+
+    ps, pt = ctx.src_ppr, ctx.tgt_ppr
+    if cfg.budget_combined is not None:
+        out = None
+        for name, code in _encoder_codes(cfg):
+            pe = sym(params[name], ps, pt)
+            m = (ctx.cls == code).to(pe.dtype)[..., None]
+            out = pe * m if out is None else out + pe * m
+        return out
+    blocks, ofs = [], 0
+    codes = _encoder_codes(cfg)
+    for k, ((name, _), width) in enumerate(
+            zip(codes, cfg.context.class_budgets)):
+        hi = ps.shape[1] if k == len(codes) - 1 else ofs + width
+        blocks.append(sym(params[name], ps[:, ofs:hi], pt[:, ofs:hi]))
+        ofs = hi
+    return torch.cat(blocks, dim=1)
+
+
+def _node_keys(lp: Dict, cfg: LPFormerConfig, X_node: torch.Tensor,
+               ctx: ContextTables) -> torch.Tensor:
+    """The node half of the keys, [B, C, H*O]: X_node @ W_r[:dim] once in
+    [N] space (N << B*C), in the key dtype (bf16 under matmul_dtype),
+    then gathered by the context ids. Row N is a zero pad row: invalid
+    slots carry the pad id N, so they gather it (the JAX package spreads
+    them over real rows instead, a TPU gather-engine workaround); either
+    way no route reads an invalid slot's key (alpha is exactly 0 there)."""
+    d = X_node.shape[-1]
+    W = lp["lin_r"]["w"]
+    kd = cfg.mm_dtype or X_node.dtype
+    X_proj = nn.matmul(X_node, W[:d], cfg.mm_dtype).to(kd)
+    X_proj = torch.cat(
+        [X_proj, torch.zeros((1, W.shape[1]), dtype=kd,
+                             device=X_proj.device)], dim=0)
+    return gather_rows_valid(X_proj, ctx.ids, ctx.valid)
+
+
+def _project_keys(lp: Dict, params: Dict, cfg: LPFormerConfig,
+                  X_node: torch.Tensor, ctx: ContextTables) -> torch.Tensor:
+    """The dense route's keys xj = [x_v || pe_v] @ W_r + b_r [B, C, H*O],
+    without the [B, C, 2*dim] table: the gathered node half
+    (``_node_keys``) plus the PE folded into W_r's PE half, plus b_r, all
+    in the key dtype."""
+    d = X_node.shape[-1]
+    W = lp["lin_r"]["w"]
+    kd = cfg.mm_dtype or X_node.dtype
+    xj = _node_keys(lp, cfg, X_node, ctx)
+    xj = xj + _pos_encodings(params, cfg, ctx, W_fold=W[d:], out_dtype=kd)
+    if "b" in lp["lin_r"]:
+        xj = xj + lp["lin_r"]["b"].to(kd)
+    return xj
+
+
+def _att_layer_apply(
+    lp: Dict, cfg: LPFormerConfig, edge_x: torch.Tensor, xj: torch.Tensor,
+    valid: torch.Tensor, gen: Optional[torch.Generator] = None,
+    train: bool = False,
+):
+    """The dense route's attention layer with H heads (reference:
+    layers.py:193-224):
+      score(v) = att . leaky_relu(xj_v * (W_l x_a + W_l x_b), 0.2)
+      out      = sum_v softmax_v(score) xj_v,
+    the softmax over each link's valid slots, then bias, post-LayerNorm
+    and dropout (layers.py:78-80). Returns (out [B, H*O], alpha
+    [B, C, H]); with bf16 keys the product, the logits and the softmax
+    are f32 by promotion."""
+    h = cfg.num_heads
+    b_, c_, _ = xj.shape
+    half = edge_x.shape[-1] // 2
+    o = lp["lin_l"]["w"].shape[1] // h
+    e1 = nn.linear_apply(lp["lin_l"], edge_x[:, :half], cfg.mm_dtype)
+    e2 = nn.linear_apply(lp["lin_l"], edge_x[:, half:], cfg.mm_dtype)
+    xj = xj.reshape(b_, c_, h, o)
+    z = F.leaky_relu(xj * (e1.reshape(b_, 1, h, o) + e2.reshape(b_, 1, h, o)),
+                     negative_slope=0.2)
+    logits = (z * lp["att"]).sum(-1)                        # [B, C, H]
+    alpha = masked_softmax(logits, valid[:, :, None], axis=1)
+    out = (alpha[..., None] * xj).sum(1).reshape(b_, h * o) + lp["bias"]
+    out = nn.layer_norm_apply(lp["post_norm"], out)
+    return nn.dropout(gen, out, cfg.dropout, train), alpha
+
+
 def remat_pairwise_on(cfg: LPFormerConfig, batch: int, slots: int) -> bool:
     """Whether the pairwise block is recomputed in the backward:
     ``cfg.remat_pairwise``, or when it is None, whether the largest
@@ -219,41 +353,41 @@ def calc_pairwise(
     params: Dict, cfg: LPFormerConfig, X_node: torch.Tensor,
     src: torch.Tensor, tgt: torch.Tensor, ctx: ContextTables, *,
     gen: Optional[torch.Generator] = None, train: bool = False,
-) -> torch.Tensor:
+    return_weights: bool = False,
+):
     """Pairwise term over the extracted context table
-    (reference: link_transformer.py:132-178). The attention layers, key
-    gathers included, are rematerialised in the backward when
-    ``remat_pairwise_on`` says so."""
-    if cfg.num_heads != 1:
-        raise NotImplementedError("num_heads > 1 is not ported yet")
+    (reference: link_transformer.py:132-178): (pairwise [B, dim], alpha),
+    alpha the last attention layer's weights [B, C, H] with
+    ``return_weights`` and None otherwise. The route is the module
+    docstring's rule. The attention layers, key gathers included, are
+    rematerialised in the backward when ``remat_pairwise_on`` says so,
+    and never under ``return_weights``."""
     feats = torch.cat([gather_rows(X_node, src), gather_rows(X_node, tgt)],
                       dim=-1)
-    d = X_node.shape[-1]
-    kd = cfg.mm_dtype or X_node.dtype
+    fused = (cfg.use_pallas_attention is not False and cfg.num_heads == 1
+             and not return_weights)
 
     def attend(X_node, feats):
+        alpha = None
         for lp in params["att_layers"]:
-            # node half of the keys projected once in [N] space; the PE
-            # half is computed inside the fused op from the [B, C] PPR
-            # tables
-            W = lp["lin_r"]["w"]
-            X_proj = nn.matmul(X_node, W[:d], cfg.mm_dtype).to(kd)
-            # pad row N = zeros. Invalid slots carry the pad id N, so they
-            # gather this zero row (the JAX package spreads them over real
-            # rows instead, a TPU gather-engine workaround); either way the
-            # op never reads an invalid slot's key
-            X_proj = torch.cat(
-                [X_proj, torch.zeros((1, W.shape[1]), dtype=kd,
-                                     device=X_proj.device)], dim=0)
-            xj_node = gather_rows_valid(X_proj, ctx.ids, ctx.valid)
-            feats = _att_layer_apply(lp, params, cfg, feats, xj_node, ctx,
-                                     gen, train)
-        return feats
+            if fused:
+                # the PE half is computed inside the fused op from the
+                # [B, C] PPR tables
+                feats = _att_layer_apply_fused(
+                    lp, params, cfg, feats, _node_keys(lp, cfg, X_node, ctx),
+                    ctx, gen, train)
+            else:
+                feats, alpha = _att_layer_apply(
+                    lp, cfg, feats,
+                    _project_keys(lp, params, cfg, X_node, ctx), ctx.valid,
+                    gen, train)
+        return feats, alpha
 
-    if torch.is_grad_enabled() and remat_pairwise_on(cfg, *ctx.ids.shape):
-        feats = _checkpoint_with_generator(attend, gen, X_node, feats)
+    if (torch.is_grad_enabled() and not return_weights
+            and remat_pairwise_on(cfg, *ctx.ids.shape)):
+        feats, alpha = _checkpoint_with_generator(attend, gen, X_node, feats)
     else:
-        feats = attend(X_node, feats)
+        feats, alpha = attend(X_node, feats)
 
     counts = ctx.counts  # [B, 4]: cns, 1hop, non1hop, neighbours
     if cfg.mask_mode == "cn":
@@ -264,7 +398,8 @@ def calc_pairwise(
     else:
         cnt = counts
     feats = torch.cat([feats, cnt], dim=-1)
-    return nn.mlp_apply(params["pairwise_lin"], feats, mm_dtype=cfg.mm_dtype)
+    feats = nn.mlp_apply(params["pairwise_lin"], feats, mm_dtype=cfg.mm_dtype)
+    return feats, (alpha if return_weights else None)
 
 
 def forward(
@@ -294,8 +429,8 @@ def forward(
     ctx = extract_context(graph.adj_rows, graph.ppr_rows, src, tgt,
                           cfg.context, mask_ranks=mask_ranks, gen=gen,
                           train=train)
-    pairwise = calc_pairwise(params, cfg, X_node, src, tgt, ctx, gen=gen,
-                             train=train)
+    pairwise, _ = calc_pairwise(params, cfg, X_node, src, tgt, ctx,
+                                gen=gen, train=train)
     return torch.cat([elementwise, pairwise], dim=-1)
 
 

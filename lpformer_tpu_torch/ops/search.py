@@ -27,6 +27,19 @@ import torch
 from lpformer_tpu_torch.ops.lookup import fused_lookup
 
 
+def row_search(
+    rows: torch.Tensor, queries: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(found, clipped insertion position) of each query in its sorted row:
+    rows [B, K], queries [B, Q] -> bool [B, Q], int64 [B, Q] (the
+    leftmost position, clipped to [0, K-1])."""
+    pos = torch.searchsorted(rows.contiguous(), queries.contiguous(),
+                             side="left")
+    pos_c = pos.clamp(0, rows.shape[1] - 1)
+    found = torch.gather(rows, 1, pos_c) == queries
+    return found, pos_c
+
+
 def fused_lookup_enabled(rows: torch.Tensor) -> bool:
     """The opt-in switch of the fused route: LPFORMER_FUSED_LOOKUP=1 and
     rows on a CUDA device."""

@@ -1,11 +1,11 @@
 """Reference-checkpoint interop (counterpart of
 ``lpformer_tpu/utils/interop.py``).
 
-Converts the reference's torch ``state_dict`` layout
+Converts between the reference's torch ``state_dict`` layout
 (reference: src/util/utils.py:21-51: ``{"model": LinkTransformer
-state_dict, "score_func": mlp_score state_dict, "optimizer": ...}``) into
+state_dict, "score_func": mlp_score state_dict, "optimizer": ...}``) and
 the port's parameter tree (``models/link_transformer.py:init_lpformer``,
-the JAX package's tree with tensor leaves).
+the JAX package's tree with tensor leaves), both ways.
 
 The mapping is structural, not numeric: torch ``Linear.weight`` is
 [out, in] and the port's ``w`` is [in, out] (transposed); LayerNorm
@@ -26,7 +26,7 @@ import torch
 from lpformer_tpu_torch import resolve_device
 from lpformer_tpu_torch.train.optim import tree_map
 
-__all__ = ["import_reference_state"]
+__all__ = ["import_reference_state", "export_reference_state"]
 
 
 def _t(x: Any) -> torch.Tensor:
@@ -135,3 +135,66 @@ def import_reference_state(state: Mapping[str, Any], device=None) -> Dict:
     # (reference: other_models.py:152-156)
     p["score"] = _mlp_in(ssd, "", lin_name="lins", norm=False)
     return tree_map(lambda t: t.to(dev), p)
+
+
+def _cpu(x: Any) -> torch.Tensor:
+    """A detached CPU copy of a leaf, as a tensor."""
+    return _t(x).cpu()
+
+
+def _lin_out(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _cpu(p["w"]).t().contiguous()
+    if p.get("b") is not None:
+        sd[prefix + ".bias"] = _cpu(p["b"])
+
+
+def _ln_out(sd: Dict[str, torch.Tensor], prefix: str, p: Mapping) -> None:
+    sd[prefix + ".weight"] = _cpu(p["g"])
+    sd[prefix + ".bias"] = _cpu(p["b"])
+
+
+def _mlp_out(sd: Dict, prefix: str, p: Mapping,
+             lin_name: str = "linears") -> None:
+    for i, lp in enumerate(p["layers"]):
+        _lin_out(sd, f"{prefix}{lin_name}.{i}", lp)
+    if "norm" in p:
+        _ln_out(sd, f"{prefix}norm", p["norm"])
+
+
+def export_reference_state(params: Mapping) -> Dict[str, Dict]:
+    """The inverse of :func:`import_reference_state`: the port's parameter
+    tree -> ``{"model": state_dict, "score_func": state_dict}`` of CPU
+    tensors whose keys are the reference modules' exactly (the unused
+    ``feat_transform`` included, zero-filled), so the reference's
+    ``load_state_dict`` takes them strictly."""
+    msd: Dict[str, torch.Tensor] = {}
+    enc = params["node_encoder"]
+    for i, c in enumerate(enc["convs"]):
+        _lin_out(msd, f"node_encoder.gnn_encoder.convs.{i}.lin",
+                 {"w": c["w"], "b": None})
+        msd[f"node_encoder.gnn_encoder.convs.{i}.bias"] = _cpu(c["bias"])
+    for i, ln in enumerate(enc.get("lns", [])):
+        _ln_out(msd, f"node_encoder.gnn_encoder.lns.{i}", ln)
+    in_dim, dim = enc["convs"][0]["w"].shape[0], enc["convs"][-1]["w"].shape[1]
+    msd["node_encoder.feat_transform.weight"] = torch.zeros(
+        (dim, in_dim), dtype=torch.float32)
+    msd["node_encoder.feat_transform.bias"] = torch.zeros(
+        (dim,), dtype=torch.float32)
+
+    _ln_out(msd, "gnn_norm", params["gnn_norm"])
+    _mlp_out(msd, "elementwise_lin.", params["elementwise_lin"])
+    for name in ("ppr_encoder_cn", "ppr_encoder_onehop",
+                 "ppr_encoder_non1hop"):
+        if name in params:
+            _mlp_out(msd, name + ".", params[name])
+    for li, lp in enumerate(params["att_layers"]):
+        _lin_out(msd, f"att_layers.{li}.att.lin_l", lp["lin_l"])
+        _lin_out(msd, f"att_layers.{li}.att.lin_r", lp["lin_r"])
+        msd[f"att_layers.{li}.att.att"] = _cpu(lp["att"])[None]
+        msd[f"att_layers.{li}.att.bias"] = _cpu(lp["bias"])
+        _ln_out(msd, f"att_layers.{li}.post_att_norm", lp["post_norm"])
+    _mlp_out(msd, "pairwise_lin.", params["pairwise_lin"])
+
+    ssd: Dict[str, torch.Tensor] = {}
+    _mlp_out(ssd, "", params["score"], lin_name="lins")
+    return {"model": msd, "score_func": ssd}

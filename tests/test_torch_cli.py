@@ -2,8 +2,9 @@
 ``configs/*.json`` (with overrides, unknown keys and missing configs),
 ``build_config``'s fields and measured budgets, the flags the port
 refuses before reading data, a train-then-``--checkpoint`` run of the
-port's own, and a checkpoint the JAX CLI trained evaluated by both
-CLIs."""
+port's own, the dense attention route (``--no-pallas-attention``,
+``--num-heads 2``) with ``--dump-att``, and a checkpoint the JAX CLI
+trained evaluated by both CLIs."""
 import ast
 import dataclasses
 import glob
@@ -64,10 +65,8 @@ def test_build_config_matches(combined):
     jcfg = jrun.build_config(jargs, jrun.load_dataset(jargs))
     tcfg = trun.build_config(targs, trun.load_dataset(targs, "cpu"))
     t, j = dataclasses.asdict(tcfg), dataclasses.asdict(jcfg)
-    shared = set(t) & set(j)
-    assert set(j) - shared == {"use_pallas_attention"}
-    assert set(t) == shared
-    assert {k: t[k] for k in shared} == {k: j[k] for k in shared}
+    assert set(t) == set(j)
+    assert t == j
     if combined == "48":
         assert tcfg.budget_combined == 48
     else:
@@ -90,8 +89,7 @@ def restore_torch_flags():
     (["--coordinator", "localhost:1234"], NotImplementedError),
     (["--num-processes", "2"], NotImplementedError),
     (["--distributed", "auto"], NotImplementedError),
-    (["--dump-att"], NotImplementedError),
-    (["--no-pallas-attention"], NotImplementedError),
+    (["--process-id", "1"], NotImplementedError),
     (["--platform", "tpu"], ValueError),
 ])
 def test_refused_flags_raise_before_reading_data(tmp_path, flag, exc,
@@ -137,6 +135,46 @@ def test_port_cli_trains_then_evaluates_its_checkpoint(
     # the best epoch's numbers, bit for bit
     assert evaluated["MRR"] == trained["MRR"]
     assert res == [trained["MRR"][2]]
+
+
+@pytest.mark.parametrize("route", [["--no-pallas-attention"],
+                                   ["--num-heads", "2"]])
+def test_dense_route_trains_and_dumps_attention(
+        tmp_path, monkeypatch, capsys, restore_torch_flags, route):
+    """--no-pallas-attention (one head) and --num-heads 2 train through the
+    dense route alone (the fused op never runs), and --dump-att with
+    --save-as writes attention_weights.npz in the working directory: the
+    first --test-batch-size test positives, their context ids and
+    validity, and alpha [B, C], 0 on invalid slots and summing to 1 over
+    each link's valid ones."""
+    from lpformer_tpu_torch.models import link_transformer as tlt
+
+    monkeypatch.chdir(tmp_path)
+    fused = []
+    for name in ("fused_pe_link_attention", "fused_pe_link_attention_mixed"):
+        real = getattr(tlt, name)
+        monkeypatch.setattr(tlt, name, lambda *a, _r=real, **k: (
+            fused.append(1), _r(*a, **k))[1])
+    argv = SYN + route + [
+        "--platform", "cpu", "--epochs", "1", "--eval_steps", "1",
+        "--batch-size", "128", "--test-batch-size", "16", "--dump-att",
+        "--save-as", "m", "--checkpoint-dir", str(tmp_path / "ck")]
+    trun.main(argv)
+    out = capsys.readouterr().out
+    assert "--dump-att: wrote attention_weights.npz for 16 edges" in out
+    assert not fused
+    args = trun.apply_config(trun.build_parser(), argv)
+    ds = trun.load_dataset(args, "cpu")
+    c = trun.build_config(args, ds).context.total_budget
+    with np.load(tmp_path / "attention_weights.npz") as z:
+        assert sorted(z.files) == ["alpha", "edges", "ids", "valid"]
+        np.testing.assert_array_equal(z["edges"], ds.test_pos[:16])
+        assert z["ids"].shape == z["valid"].shape == z["alpha"].shape == (
+            16, c)
+        valid, alpha = z["valid"], z["alpha"]
+    assert valid.any() and (alpha[~valid] == 0).all()
+    has = valid.any(1)
+    np.testing.assert_allclose(alpha[has].sum(1), 1.0, atol=1e-5)
 
 
 @pytest.fixture(scope="module")

@@ -193,10 +193,27 @@ def test_masked_softmax_matches():
 
 
 def test_unported_layouts_raise(both):
-    _, td = both
-    src = torch.as_tensor([0, 1])
-    tcfg = TConfig(dim=16, gnn_layers=2, num_heads=2, budget_combined=32)
-    tp = tlt.init_lpformer(torch.Generator().manual_seed(0), tcfg, 12,
-                           device="cpu")
-    with pytest.raises(NotImplementedError):
-        tlt.forward(tp, tcfg, td.graph, src, src)
+    """The layouts the JAX package refuses too: two attention layers with
+    more than one head (the reference's own stack is inconsistent there)
+    and more than two layers."""
+    for kw in (dict(trans_layers=2, num_heads=2), dict(trans_layers=3)):
+        tcfg = TConfig(dim=16, gnn_layers=2, budget_combined=32, **kw)
+        with pytest.raises(NotImplementedError):
+            tlt.init_lpformer(torch.Generator().manual_seed(0), tcfg, 12,
+                              device="cpu")
+        with pytest.raises(NotImplementedError):
+            jlt.init_lpformer(jax.random.PRNGKey(0), JConfig(
+                dim=16, gnn_layers=2, budget_combined=32, **kw), 12)
+
+
+@pytest.mark.parametrize("table", list(TABLES))
+def test_two_heads_match_f32(both, table):
+    """num_heads=2 (the dense route on both sides): propagate, h and the
+    scores against JAX at the f32 tolerance."""
+    jd, td = both
+    (jx, jh, js), (tx, th, ts) = _run(
+        jd, td, *_configs("all", num_heads=2, **TABLES[table]), False)
+    assert th.shape == (16, 32)
+    np.testing.assert_allclose(tx, jx, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(th, jh, rtol=5e-4, atol=5e-5)
+    np.testing.assert_allclose(ts, js, rtol=5e-4, atol=5e-5)
