@@ -70,6 +70,30 @@ and, on the collab-like dataset, the dense attention route:
      num_heads=2 on the combined table (H*O 256): a step against plain row
      3, 5 timed steps and the eval sweep with the trained parameters; (c)
      test_by_cn_bins over the test split, the bins' counts adding up;
+ 15. the mesh (parallel/), on the collab-like dataset, whose PPR the
+     parent caches for the ranks: (a) 4 ranks as a 2 x 2 mesh, every
+     rank on this card over gloo (NCCL puts one rank on a card): the
+     sharded loss and global gradient of one step, dropout off, against
+     the single-device step over the same COO GCN with the batch split
+     as the ranks split it, for the combined table plain,
+     context-parallel (C over g = 2, held to the dense route, whose slice
+     it is) and mask_input and the classic table, each in f32 (loss and
+     every leaf held) and in bf16 (the loss, the median leaf, every leaf
+     and the GCN's leaves held: MESH_BF16_*), every rank's launches equal
+     to the single-device step's; 8 steps with the dropouts (the loss
+     falls, the parameters bit-identical on every rank; ms and peak
+     memory per rank, which are not a 4-card mesh's); the eval sweep
+     through ShardedEvalContext, its scores held to the single-device
+     scores (TOL[bf16]) and its launches counted; (b) one rank over NCCL
+     (a 1 x 1 mesh): the plain steps held alike, NCCL's collectives
+     checked on the card, then the CLI, ``--mesh 1,1`` on a small
+     collab-like synthetic graph (MESH_CLI): one epoch with --save-as and
+     the checkpoint's eval with ``--mesh 1,1``, their launches equal to
+     the single-device CLI's, the checkpoint's eval scores held to the
+     single-device CLI's eval of it (TOL[bf16]); (c)
+     graft_entry.dryrun_multichip(8) on this card over gloo: the JAX
+     dryrun's meshes (1,8), (2,4), (4,2), (8,1), each variant's loss equal
+     to the single-device loss;
   8. HeaRT: the collab-like dataset with 100 negatives per eval positive,
      run_eval -> test_standard(heart=True) on the combined table: the
      per-positive MRR in [0, 1], the forward kernel's launches equal to
@@ -155,6 +179,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import argparse
 import subprocess
@@ -225,6 +250,24 @@ STEP_F32_ROUTE_GRAD_TOL = 1e-3
 # through the kernels (PERF.md §6); a wrong denominator or a lost
 # micro-batch moves every leaf by O(1e-1).
 STEP_F32_ACCUM_GRAD_TOL = 2e-3
+# Phase 15's bf16 mesh steps against the single-device step over the same
+# COO GCN, the batch split as the ranks split it, per leaf ||a - b|| /
+# ||b||. The two still add each node's messages in another order (the
+# rank's edge block, then the psum over 'data'), and a last-bit change of
+# an f32 sum before its bf16 rounding flips it. At the PE encoders' and
+# the attention's weights, whose gradients are small sums that cancel
+# over the slots, such flips move a leaf by 1e-2 to 2e-1 between two
+# single-device steps of the same math (PERF.md §6: the batch split 4
+# ways 1.2e-2 to 1.9e-2, the COO GCN against the BucketedELL 4.0e-2, the
+# dense route against the kernels 1.8e-1), while the median leaf stays
+# at 1.3e-3 to 1.9e-3 (the mesh against the BucketedELL). So the median
+# is held to 1e-2, every leaf to 0.25, and the GCN's leaves
+# (node_encoder, gnn_norm: what the sharded SpMM's bf16 gather feeds)
+# to STEP_GRAD_TOL: a leaf that lost the shares of one to three of the
+# four ranks, or counted one twice, moves by about 0.25 or more, and a
+# lost all-reduce moves every leaf.
+MESH_BF16_MEDIAN_TOL, MESH_BF16_LEAF_TOL = 1e-2, 0.25
+MESH_BF16_GCN = ("node_encoder", "gnn_norm")
 # Row 5 at a CLI path's shapes in f32 (the collab CLI's backward sums over
 # 525,864 valid slots). Its weight grads are sums over every valid slot of
 # the batch that cancel, and two rounding-level effects move them past
@@ -648,13 +691,13 @@ def phase_attention_ab(dev, card):
             "fused_link_attention_bwd": launches[1]}
 
 
-def load_dataset(dev, data=None):
+def load_dataset(dev, data=None, ppr_cache_dir=None):
     from lpformer_tpu_torch import presets
     from lpformer_tpu_torch.data.synthetic import synthetic_dataset
 
     data = data or presets.COLLAB_LIKE_DATA
     t0 = time.perf_counter()
-    ds = synthetic_dataset(**data, device=dev)
+    ds = synthetic_dataset(**data, ppr_cache_dir=ppr_cache_dir, device=dev)
     log(f"dataset: {time.perf_counter() - t0:.1f} s host build "
         f"({ds.num_nodes} nodes, {ds.graph.num_edges} directed edges)")
     return ds
@@ -1019,6 +1062,20 @@ def _compare_steps(label, a, b, leaves_with_path, loss_tol=STEP_LOSS_TOL,
     return equal, dl, max(rel)
 
 
+def _nodrop(c):
+    return dataclasses.replace(c, dropout=0.0, gnn_drop=0.0, att_drop=0.0,
+                               feat_drop=0.0, pred_drop=0.0)
+
+
+def _step_inputs(ds, batch, dev):
+    """The held steps' batch: the first ``batch`` train links, negatives
+    from a fixed seed, unit weights (the same on every rank of phase 15)."""
+    pos = torch.as_tensor(ds.train_pos[:batch]).to(dev)
+    neg = torch.randint(0, ds.num_nodes, (2, batch),
+                        generator=torch.Generator().manual_seed(1)).to(dev)
+    return pos, neg, torch.ones(batch, device=dev)
+
+
 def _step_pair(dev, ds, layout, tabs, cfg, batch, mask_input=False,
                against=None, hold=True):
     """One training step, dropout off and fixed negatives, through the
@@ -1032,16 +1089,9 @@ def _step_pair(dev, ds, layout, tabs, cfg, batch, mask_input=False,
     from lpformer_tpu_torch.ops import masking
     from lpformer_tpu_torch.train import optim, step as step_mod
 
-    def nodrop(c):
-        return dataclasses.replace(c, dropout=0.0, gnn_drop=0.0, att_drop=0.0,
-                                   feat_drop=0.0, pred_drop=0.0)
-
-    params = _fresh_params(dev, nodrop(cfg), int(ds.graph.x.shape[1]))
+    params = _fresh_params(dev, _nodrop(cfg), int(ds.graph.x.shape[1]))
     leaves = optim.tree_leaves(params)
-    pos = torch.as_tensor(ds.train_pos[:batch]).to(dev)
-    neg = torch.randint(0, ds.num_nodes, (2, batch),
-                        generator=torch.Generator().manual_seed(1)).to(dev)
-    w = torch.ones(batch, device=dev)
+    pos, neg, w = _step_inputs(ds, batch, dev)
     mr = masking.batch_mask_ranks(ds.graph.adj_rows, pos[:, 0], pos[:, 1],
                                   ds.mask_mult_device, weight=w)
     prop_w = (masking.mask_edge_weights(mr, ds.graph.edge_rank,
@@ -1049,7 +1099,7 @@ def _step_pair(dev, ds, layout, tabs, cfg, batch, mask_input=False,
               if mask_input else None)
 
     def loss_and_grads(c):
-        loss = step_mod.loss_fn(params, nodrop(c), ds.graph, pos[:, 0],
+        loss = step_mod.loss_fn(params, _nodrop(c), ds.graph, pos[:, 0],
                                 pos[:, 1], neg[0], neg[1], w, mr, None,
                                 prop_w, mask_input)
         return loss.detach(), torch.autograd.grad(loss, leaves)
@@ -2072,7 +2122,8 @@ def _cli(argv):
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(tee):
         result = run.main(argv)
-    torch.cuda.synchronize()
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
     return result, tee.buf.getvalue(), time.perf_counter() - t0
 
 
@@ -2545,6 +2596,523 @@ def phase_cli_cora_heart(dev, card, tabs):
     torch.cuda.empty_cache()
 
 
+# Phase 15's mesh: 4 ranks as a 2 x 2 mesh, every rank on the one card,
+# exchanging through gloo (NCCL puts one rank on a card)
+MESH_SHAPE = (2, 2)
+MESH_STEPS = 8
+# phase 15 (b)'s CLI runs: the collab-like preset's widths (dim 128, 3 GCN
+# layers, bf16, the combined table of 128, batch 4096) on a synthetic graph
+# of 5,000 nodes, one epoch of 10 steps
+MESH_CLI = ["--data_name", "synthetic", "--syn-nodes", "5000",
+            "--syn-edges", "40000", "--syn-feat", "128", "--eps", "5e-4",
+            "--dim", "128", "--gnn-layers", "3", "--matmul-dtype",
+            "bfloat16", "--budget-combined", "128", "--budget-cn", "64",
+            "--budget-onehop", "128", "--budget-non1hop", "128",
+            "--batch-size", "4096", "--test-batch-size", "4096",
+            "--epochs", "1", "--eval_steps", "1", "--runs", "1"]
+DRYRUN_RANKS = 8
+
+
+def _sync(dev):
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _launch_counts(counters):
+    return {n: f.launches for n, f in counters.items()}
+
+
+def _mesh_variants():
+    """(name, config, make_sharded_loss keywords, held tolerances) of
+    phase 15's steps: the collab-like combined table plain,
+    context-parallel (C 128 over g = 2) and mask_input, and the classic
+    table plain, each in bf16 (the preset's dtype) and in f32.
+
+    The f32 steps hold the loss and every gradient leaf
+    (STEP_F32_LOSS_TOL, STEP_F32_ACCUM_GRAD_TOL: the split batch's f32
+    sums in another order, as grad_accum's). The bf16 steps hold the loss
+    (STEP_LOSS_TOL) and the gradients as MESH_BF16_* says (None here)."""
+    from lpformer_tpu_torch import presets
+
+    out = []
+    for dtype in ("bfloat16", "float32"):
+        def cfg_of(c):
+            return dataclasses.replace(c, matmul_dtype=dtype)
+
+        tols = ((STEP_LOSS_TOL, None) if dtype == "bfloat16" else
+                (STEP_F32_LOSS_TOL, STEP_F32_ACCUM_GRAD_TOL))
+        sfx = "" if dtype == "bfloat16" else " f32"
+        cfg = cfg_of(presets.COLLAB_LIKE_CONFIG)
+        out += [("plain" + sfx, cfg, {}, tols),
+                ("context_parallel" + sfx, cfg, {"context_parallel": True},
+                 tols),
+                ("mask_input" + sfx, cfg, {"mask_input": True}, tols),
+                ("classic" + sfx, cfg_of(presets.COLLAB_LIKE_CLASSIC_CONFIG),
+                 {}, tols)]
+    return out
+
+
+def _single_step(dev, ds, cfg, batch, mask_input, counters, micro=1):
+    """The single-device step of ``_step_inputs``' batch, dropout off,
+    split into ``micro`` micro-batches as grad_accum splits it (the
+    full batch's mask and denominators, the gradients summed): (loss,
+    grads, leaves with paths, the launches of the forwards and the
+    backwards)."""
+    from lpformer_tpu_torch.ops import masking
+    from lpformer_tpu_torch.train import optim, step as step_mod
+
+    params = _fresh_params(dev, _nodrop(cfg), int(ds.graph.x.shape[1]))
+    leaves = optim.tree_leaves(params)
+    pos, neg, w = _step_inputs(ds, batch, dev)
+    mr = masking.batch_mask_ranks(ds.graph.adj_rows, pos[:, 0], pos[:, 1],
+                                  ds.mask_mult_device, weight=w)
+    prop_w = (masking.mask_edge_weights(mr, ds.graph.edge_rank,
+                                        (ds.graph.edge_w > 0).float())
+              if mask_input else None)
+    for f in counters.values():
+        f.launches = 0
+    mb = batch // micro
+    loss, grads = 0.0, None
+    for i in range(micro):
+        sl = slice(i * mb, (i + 1) * mb)
+        part = step_mod.loss_fn(
+            params, _nodrop(cfg), ds.graph, pos[sl, 0], pos[sl, 1],
+            neg[0, sl], neg[1, sl], w[sl], mr, None, prop_w, mask_input,
+            pos_denom=w.sum(), neg_denom=w.sum())
+        g = torch.autograd.grad(part, leaves)
+        grads = g if grads is None else [a + b for a, b in zip(grads, g)]
+        loss = loss + part.detach()
+    _sync(dev)
+    return (loss, grads, optim.tree_leaves_with_path(params),
+            _launch_counts(counters))
+
+
+def _digest(tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _mesh_rank(rank, spec):
+    """One rank of phase 15: the collab-like dataset on the host (the PPR
+    from the parent's cache), this rank's shards on its device; each
+    variant's sharded loss and global gradient, dropout off, with the
+    launch counts of its forward and backward; then, when ``spec``
+    asks, MESH_STEPS training steps (ms, peak memory, the parameters'
+    digest) and the eval sweep through ShardedEvalContext."""
+    import torch.distributed as dist
+
+    from lpformer_tpu_torch.data.synthetic import synthetic_dataset
+    from lpformer_tpu_torch.evalx import harness
+    from lpformer_tpu_torch.parallel import (
+        distributed, make_mesh, make_sharded_loss, make_sharded_train_step,
+        partition_graph, place_sharded_graph,
+    )
+    from lpformer_tpu_torch.parallel.eval import ShardedEvalContext
+    from lpformer_tpu_torch.parallel.sharded_step import value_and_grad
+    from lpformer_tpu_torch.train import optim
+    from lpformer_tpu_torch.train.step import TrainState
+
+    dev = distributed.rank_device()
+    t0 = time.perf_counter()
+    ds = synthetic_dataset(**spec["data"], ppr_cache_dir=spec["ppr_cache"],
+                           device="cpu")
+    d, g = spec["mesh"]
+    mesh = make_mesh(d, g)
+    sg = place_sharded_graph(
+        partition_graph(ds.graph, g=g, d=d, mask_input=True), mesh)
+    out = dict(build_s=time.perf_counter() - t0,
+               backend=dist.get_backend(), device=str(dev),
+               ctx_rows=int(sg.adj_nbrs.shape[0]), variants={})
+    counters = _counters(tables())
+    in_dim = int(ds.graph.x.shape[1])
+    mult = ds.mask_mult_device.to(dev)
+    pos, neg, w = _step_inputs(ds, spec["batch"], dev)
+    for name, cfg, kw, _ in spec["variants"]:
+        params = _fresh_params(dev, _nodrop(cfg), in_dim)
+        loss_fn = make_sharded_loss(_nodrop(cfg), mesh, ds.num_nodes,
+                                    sg.rows_per_shard, sg.ctx_rows_per_shard,
+                                    **kw)
+        for f in counters.values():
+            f.launches = 0
+        loss, grads = value_and_grad(loss_fn, mesh, params, sg, mult,
+                                     pos[:, 0], pos[:, 1], w, neg[0], neg[1],
+                                     w)
+        _sync(dev)
+        out["variants"][name] = dict(
+            loss=float(loss), launches=_launch_counts(counters),
+            grads=([x.cpu().numpy() for x in optim.tree_leaves(grads)]
+                   if rank == 0 else None))
+    if spec.get("nccl_check"):
+        # every collective the mesh path calls, on the card's tensors
+        x = torch.arange(8, dtype=torch.float32, device=dev)
+        parts = [torch.empty_like(x)]
+        dist.all_gather(parts, x)
+        a2a = torch.empty_like(x)
+        dist.all_to_all_single(a2a, x, [8], [8])
+        red = x.clone()
+        dist.all_reduce(red)
+        if not all(torch.equal(t, x) for t in (parts[0], a2a, red)):
+            raise AssertionError("NCCL collectives returned wrong values")
+    if spec.get("cli"):
+        out["cli"] = _mesh_cli(spec["cli"], ["--mesh", "1,1"])
+    if not spec.get("steps"):
+        return out
+
+    cfg, batch = spec["train_cfg"], spec["batch"]
+    params = _fresh_params(dev, cfg, in_dim)
+    opt = optim.make_optimizer(1e-3, steps_per_epoch=spec["steps"])
+    step = make_sharded_train_step(cfg, opt, mesh, ds.num_nodes,
+                                   sg.rows_per_shard, sg.ctx_rows_per_shard)
+    state = TrainState(params, opt.init(params), 0)
+    for f in counters.values():
+        f.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    losses, times = [], []
+    for _ in range(spec["steps"]):
+        _sync(dev)
+        t = time.perf_counter()
+        state, loss = step(state, sg, mult, pos[:, 0], pos[:, 1], w, 0)
+        _sync(dev)
+        times.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+    out.update(
+        losses=losses, step_ms=times, train_launches=_launch_counts(counters),
+        params_digest=_digest(optim.tree_leaves(state.params)),
+        peak_gib=(torch.cuda.max_memory_allocated(dev) / 2**30
+                  if dev.type == "cuda" else None))
+
+    # the eval sweep over the mesh, fresh parameters of the same seed
+    params = _fresh_params(dev, cfg, in_dim)
+    ctx = ShardedEvalContext(cfg, mesh, ds, sg_train=sg)
+    with torch.no_grad():
+        X = ctx.prop(params, ctx.sg)
+        links = np.concatenate([ds.train_pos_val, ds.valid_pos, ds.test_pos,
+                                ds.valid_neg, ds.test_neg])
+        scores = harness.score_edges(ctx.score, params, ctx.sg, X, links,
+                                     batch)
+    for f in counters.values():
+        f.launches = 0
+    _sync(dev)
+    t = time.perf_counter()
+    metrics = harness.test_standard(params, cfg, ds, batch_size=batch,
+                                    sharded=ctx)
+    _sync(dev)
+    out.update(scores=scores if rank == 0 else None, metrics=metrics,
+               eval_ms=(time.perf_counter() - t) * 1e3,
+               eval_launches=_launch_counts(counters))
+    return out
+
+
+def _cli_counted(argv):
+    """One CLI run: its result, printed metrics, launches, wall seconds
+    and eval scores (one array per score_edges call)."""
+    from lpformer_tpu_torch.evalx import harness
+
+    counters = _zeroed(tables())
+    with _recording(harness, "score_edges", []) as sink:
+        result, text, wall = _cli(argv)
+    return dict(result=result, metrics=_printed_metrics(text),
+                launches=_launch_counts(counters), wall_s=wall, scores=sink)
+
+
+def _mesh_cli(cli, extra):
+    """The CLI (``cli``: its argv and checkpoint directory) for one epoch
+    with --save-as, then the checkpoint's eval, each with ``extra``
+    appended (``--mesh 1,1`` on a rank)."""
+    argv = cli["argv"] + ["--checkpoint-dir", cli["ckpt"]] + extra
+    return dict(train=_cli_counted(argv + ["--save-as", "mesh"]),
+                eval=_cli_counted(argv + ["--checkpoint", "mesh"]))
+
+
+def _hold_scores(label, got, want, suffix=""):
+    """Two runs' eval scores (lists of arrays, pairwise of one shape)
+    within TOL[bf16], max and mean abs error, every score finite."""
+    tol = TOL[torch.bfloat16]
+    same = len(got) == len(want) and all(
+        a.shape == b.shape for a, b in zip(got, want))
+    g = np.concatenate([a.ravel() for a in got]) if got else np.zeros(0)
+    err = (np.abs(g.astype(np.float64) - np.concatenate(
+        [b.ravel() for b in want])) if same and g.size else np.full(1, np.inf))
+    log(f"{label}: {g.size} scores, max abs err {err.max():.3e}, mean "
+        f"{err.mean():.3e} (tol {tol}){suffix}")
+    if (not same or not np.isfinite(g).all() or err.max() > tol[0]
+            or err.mean() > tol[1]):
+        raise AssertionError(f"{label}: the scores disagree")
+
+
+def _hold_mesh_cli(mesh, single, backend, dev, card):
+    """Phase 15 (b)'s CLI runs: the mesh's launches equal the single
+    device's, training and eval; the mesh checkpoint's eval over the mesh
+    against the single-device CLI's eval of it."""
+    def test(metrics):
+        return {k: v[2] for k, v in metrics.items()}
+
+    m, s_ = mesh["train"], single["train"]
+    log(f"phase 15 (b) CLI --mesh 1,1 over {backend}, one epoch: "
+        f"{m['wall_s']:.1f} s, best valid "
+        f"{m['result']}, test {test(m['metrics'])}; the single-device CLI "
+        f"{s_['wall_s']:.1f} s, best valid {s_['result']}, test "
+        f"{test(s_['metrics'])} (dropout draws differ)  [{card}]")
+    if not m["metrics"] or not all(
+            0.0 <= x <= 1.0 for v in m["metrics"].values() for x in v):
+        raise AssertionError("CLI --mesh 1,1: no metrics in [0, 1]")
+    _hold_rank_launches("CLI --mesh 1,1 training, eval included",
+                        [m["launches"]], s_["launches"], dev)
+    m, s_ = mesh["eval"], single["eval"]
+    _hold_rank_launches("CLI --checkpoint --mesh 1,1", [m["launches"]],
+                        s_["launches"], dev)
+    gap = max(abs(m["metrics"][k][i] - v[i])
+              for k, v in s_["metrics"].items() for i in range(3))
+    _hold_scores("phase 15 (b) CLI --checkpoint --mesh 1,1 vs the "
+                 "single-device CLI's eval of the same checkpoint",
+                 m["scores"], s_["scores"],
+                 f"; metrics {test(m['metrics'])} vs {test(s_['metrics'])},"
+                 f" max |diff| {gap:.2e}; {m['wall_s']:.1f} s vs "
+                 f"{s_['wall_s']:.1f} s  [{card}]")
+
+
+def _hold_mesh_bf16(label, got_grads, ref, dev):
+    """A bf16 mesh step's gradient leaves against ``ref``'s as
+    MESH_BF16_* says: the median leaf, every leaf and the GCN's leaves."""
+    paths = ["/".join(map(str, p)) for p, _ in ref[2]]
+    rel = [float((torch.as_tensor(g, device=dev) - y).norm()
+                 / y.norm().clamp_min(1e-30)) for g, y in zip(got_grads,
+                                                              ref[1])]
+    gcn = [e for e, p in zip(rel, paths) if p.startswith(MESH_BF16_GCN)]
+    med = statistics.median(rel)
+    log(f"  bf16 gradients: median leaf {med:.2e} (tol "
+        f"{MESH_BF16_MEDIAN_TOL}), max {max(rel):.2e} at "
+        f"{paths[rel.index(max(rel))]} (tol {MESH_BF16_LEAF_TOL}), the "
+        f"GCN's {len(gcn)} leaves max {max(gcn):.2e} (tol {STEP_GRAD_TOL})")
+    if (med > MESH_BF16_MEDIAN_TOL or max(rel) > MESH_BF16_LEAF_TOL
+            or max(gcn) > STEP_GRAD_TOL or not all(
+                np.isfinite(g).all() for g in got_grads)):
+        raise AssertionError(f"{label}: bf16 gradients disagree")
+
+
+def _hold_rank_launches(label, per_rank, want, dev):
+    """Every rank's launches equal the single-device path's (rows 6-8
+    at 0 with them); on the card the path's rows were launched. Logs the
+    non-zero counts."""
+    shown = {n: v for n, v in want.items() if v}
+    log(f"  {label}: launches per rank {shown or 'none'} = single device's "
+        f"(the other rows 0) on all {len(per_rank)} ranks: "
+        f"{all(r == want for r in per_rank)}")
+    if any(r != want for r in per_rank):
+        raise AssertionError(f"{label}: launches {per_rank} != {want}")
+    if torch.device(dev).type == "cuda" and not shown:
+        raise AssertionError(f"{label}: no kernel launched")
+
+
+def phase_mesh(dev, card, ds, tabs, ppr_cache, batch):
+    """Phase 15: the mesh path (parallel/).
+
+    (a) 4 ranks as a 2 x 2 mesh, all on this card over gloo, at the
+    collab-like preset's full width: the sharded loss and every gradient
+    leaf, dropout off, held to the single-device step through the kernels
+    over the same COO GCN (the mesh's), the batch split as the ranks
+    split it, for the plain, context-parallel and mask_input variants of
+    the combined table and the plain classic table, in f32
+    (STEP_F32_LOSS_TOL, STEP_F32_ACCUM_GRAD_TOL) and in bf16
+    (STEP_LOSS_TOL, MESH_BF16_*); the context-parallel variant is the
+    dense attention route on a slice of C, so it is held to the
+    single-device dense route (its gap to the kernel route logged); each
+    rank's launches equal the single-device step's; MESH_STEPS steps with
+    the dropouts (the loss falls, the parameters bit-identical on every
+    rank, ms and peak memory per rank: four ranks share one card, so
+    these are not the speeds of a four-card mesh); an eval sweep through
+    ShardedEvalContext, its scores held to the single-device scores
+    (TOL[bf16]). (b) One rank over NCCL (a 1 x 1 mesh): the plain steps
+    held alike, then the CLI with ``--mesh 1,1`` (train_loop's mesh
+    branch, a checkpoint, eval_checkpoint over the mesh) against the
+    single-device CLI. (c) graft_entry.dryrun_multichip(DRYRUN_RANKS) on
+    this card over gloo."""
+    from lpformer_tpu_torch import graft_entry, presets
+    from lpformer_tpu_torch.evalx import harness
+    from lpformer_tpu_torch.models import link_transformer as lt
+    from lpformer_tpu_torch.parallel import distributed
+
+    cuda = torch.device(dev).type == "cuda"
+    n = MESH_SHAPE[0] * MESH_SHAPE[1]
+    # NCCL puts one rank on a card: the ranks of (a) and (c) share this
+    # one over gloo
+    rank_dev = "cuda:0" if cuda else "cpu"
+    counters = _counters(tabs)
+    variants = _mesh_variants()
+    # the GCN as the mesh runs it: a COO gather and index_add_
+    coo = dataclasses.replace(ds, graph=dataclasses.replace(ds.graph,
+                                                            ell=None))
+    # single-device references: the step whole (its launches, and a
+    # logged witness), and over the COO split as the ranks split the
+    # batch (held): a rank's share of the gradient of a bf16-cast weight
+    # is rounded to bf16 before the ranks' shares meet, as grad_accum's
+    # micro-batches' are (ROADMAP Queue 3)
+    whole, refs = {}, {}
+    for name, cfg, kw, _ in variants:
+        cp = kw.get("context_parallel", False)
+        ref_cfg = (dataclasses.replace(cfg, use_pallas_attention=False)
+                   if cp else cfg)
+        mi = kw.get("mask_input", False)
+        whole[name] = _single_step(dev, ds, ref_cfg, batch, mi, counters)
+        refs[name] = _single_step(dev, coo, ref_cfg, batch, mi, counters,
+                                  micro=MESH_SHAPE[0] if cp else n)
+        _compare_steps(f"phase 15 witness {name}: single device over the "
+                       f"COO split {MESH_SHAPE[0] if cp else n} ways vs "
+                       "whole over the BucketedELL", refs[name][:2],
+                       whole[name][:2], whole[name][2], hold=False)
+    _compare_steps("phase 15 witness: the dense route vs the kernel route "
+                   "(single device, whole)", whole["context_parallel"][:2],
+                   whole["plain"][:2], whole["plain"][2], hold=False)
+    plain = [v for v in variants if v[0] in ("plain", "plain f32")]
+    coo_whole = {name: _single_step(dev, coo, cfg, batch, False, counters)
+                 for name, cfg, _, _ in plain}
+    _compare_steps("phase 15 witness: the GCN over the COO vs the "
+                   "BucketedELL (single device, whole)",
+                   coo_whole["plain"][:2], whole["plain"][:2],
+                   whole["plain"][2], hold=False)
+    train_cfg = presets.COLLAB_LIKE_CONFIG
+    spec = dict(data=presets.COLLAB_LIKE_DATA, ppr_cache=ppr_cache,
+                mesh=MESH_SHAPE, batch=batch, variants=variants,
+                train_cfg=train_cfg, steps=MESH_STEPS)
+    t0 = time.perf_counter()
+    ranks = distributed.spawn_local(_mesh_rank, n, (spec,), device=rank_dev,
+                                    backend="gloo", timeout_s=900)
+    shared = (f"; {n} ranks share one card over gloo: not the speed of a "
+              f"{n}-card mesh")
+    wall = time.perf_counter() - t0
+    log(f"phase 15 (a): {n} ranks as a {MESH_SHAPE[0]} x {MESH_SHAPE[1]} "
+        f"mesh on {', '.join(sorted({r['device'] for r in ranks}))} over "
+        f"{ranks[0]['backend']}, "
+        f"{wall:.1f} s in all; host build per rank "
+        + ", ".join(f"{r['build_s']:.1f}" for r in ranks)
+        + f" s; context rows per rank {ranks[0]['ctx_rows']} of "
+        f"{ds.num_nodes}")
+
+    def hold(label, got_loss, got_grads, ref, tols):
+        grads = [torch.as_tensor(g, device=dev) for g in got_grads]
+        loss_tol, grad_tol = tols
+        _, dl, _ = _compare_steps(
+            label, (torch.tensor(got_loss, device=dev), grads), ref[:2],
+            ref[2], loss_tol, grad_tol, hold=grad_tol is not None)
+        if dl > loss_tol:
+            raise AssertionError(f"{label}: loss disagrees")
+        if grad_tol is None:
+            log(f"  the loss held to {loss_tol}: |diff| {dl:.2e}")
+            _hold_mesh_bf16(label, got_grads, ref, dev)
+
+    for name, cfg, kw, tols in variants:
+        losses = [r["variants"][name]["loss"] for r in ranks]
+        if len(set(losses)) != 1:
+            raise AssertionError(f"{name}: ranks' losses differ {losses}")
+        hold(f"phase 15 (a) {name} (dim {cfg.dim}, batch {batch}, "
+             f"{cfg.matmul_dtype}): mesh vs single device over the COO "
+             "split alike" + (" (dense route)"
+                              if kw.get("context_parallel") else ""),
+             losses[0], ranks[0]["variants"][name]["grads"], refs[name],
+             tols)
+        _hold_rank_launches(name, [r["variants"][name]["launches"]
+                                   for r in ranks], whole[name][3], dev)
+    if cuda:
+        cp = ranks[0]["variants"]["context_parallel"]
+        _compare_steps("phase 15 (a) context_parallel vs the single-device "
+                       "kernel route (logged)", (torch.tensor(
+                           cp["loss"], device=dev), [torch.as_tensor(
+                               g, device=dev) for g in cp["grads"]]),
+                       whole["plain"][:2], whole["plain"][2], hold=False)
+
+    # training steps: the loss falls, every rank's parameters the same
+    losses = ranks[0]["losses"]
+    digests = {r["params_digest"] for r in ranks}
+    log(f"phase 15 (a) {MESH_STEPS} steps (dropouts on, one batch of "
+        f"{batch}): losses " + " ".join(f"{x:.5f}" for x in losses)
+        + f"; parameters identical on every rank: {len(digests) == 1}")
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]
+            and len(digests) == 1
+            and all(r["losses"] == losses for r in ranks)):
+        raise AssertionError("phase 15 (a) training steps failed")
+    _hold_rank_launches(f"{MESH_STEPS} steps",
+                        [r["train_launches"] for r in ranks],
+                        {n_: v * MESH_STEPS
+                         for n_, v in whole["plain"][3].items()}, dev)
+    for k, r in enumerate(ranks):
+        peak = ("not measured" if r["peak_gib"] is None
+                else f"{r['peak_gib']:.2f} GiB")
+        log(f"  rank {k}: step ms median {statistics.median(r['step_ms']):.1f}"
+            f" (min {min(r['step_ms']):.1f}, of {MESH_STEPS} steps incl. "
+            f"the first), peak memory {peak}  [{card}{shared}]")
+
+    # the eval sweep
+    params = _fresh_params(dev, train_cfg, int(ds.graph.x.shape[1]))
+    with torch.no_grad():
+        X = lt.propagate(params, train_cfg, ds.graph)
+        links = np.concatenate([ds.train_pos_val, ds.valid_pos, ds.test_pos,
+                                ds.valid_neg, ds.test_neg])
+        want = harness.score_edges(harness.make_score_fn(train_cfg), params,
+                                   ds.graph, X, links, batch)
+    n_batches = sum(-(-len(s_) // batch) for s_ in (
+        ds.train_pos_val, ds.valid_pos, ds.test_pos, ds.valid_neg,
+        ds.test_neg))
+    _hold_scores("phase 15 (a) eval: the scores over the mesh vs single "
+                 "device", [ranks[0]["scores"]], [want],
+                 f"; test_standard {ranks[0]['eval_ms']:.1f} ms, "
+                 + ", ".join(f"{k} {v[0]:.4f}/{v[1]:.4f}/{v[2]:.4f}"
+                             for k, v in ranks[0]["metrics"].items())
+                 + f"  [{card}{shared}]")
+    if any(r["metrics"] != ranks[0]["metrics"] for r in ranks):
+        raise AssertionError("ranks' eval metrics differ")
+    want_l = {n_: 0 for n_ in counters}
+    want_l[tabs["combined"]["fwd_entry"][0]] = (
+        n_batches * train_cfg.trans_layers if cuda else 0)
+    _hold_rank_launches("test_standard", [r["eval_launches"] for r in ranks],
+                        want_l, dev)
+
+    # (b) one rank over NCCL: a 1 x 1 mesh, the bf16 and f32 plain steps,
+    # then the CLI with --mesh 1,1
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    spec_b = dict(spec, mesh=(1, 1), variants=plain, steps=0,
+                  nccl_check=cuda, cli=dict(argv=MESH_CLI, ckpt=ckpt_dir))
+    t0 = time.perf_counter()
+    try:
+        one = distributed.spawn_local(_mesh_rank, 1, (spec_b,),
+                                      device=rank_dev,
+                                      backend="nccl" if cuda else None,
+                                      timeout_s=900)[0]
+        log(f"phase 15 (b): one rank over {one['backend']} on "
+            f"{one['device']}, {time.perf_counter() - t0:.1f} s")
+        for name, _, _, tols in plain:
+            got = one["variants"][name]
+            hold(f"phase 15 (b) {name}, 1 x 1 mesh over {one['backend']}: "
+                 "vs single device over the COO", got["loss"], got["grads"],
+                 coo_whole[name], tols)
+            _hold_rank_launches(f"1 x 1 rank {name}", [got["launches"]],
+                                whole[name][3], dev)
+        # the single-device CLI: an epoch of its own, and the eval of the
+        # mesh's checkpoint
+        argv = MESH_CLI + ["--checkpoint-dir", ckpt_dir]
+        single = dict(train=_cli_counted(argv + ["--save-as", "single"]),
+                      eval=_cli_counted(argv + ["--checkpoint", "mesh"]))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _hold_mesh_cli(one["cli"], single, one["backend"], dev, card)
+
+    # (c) the JAX dryrun's matrix, every rank on this card
+    t0 = time.perf_counter()
+    lines = graft_entry.dryrun_multichip(DRYRUN_RANKS, device=rank_dev,
+                                         backend="gloo")
+    for line in lines:
+        log(f"  {line}")
+    log(f"phase 15 (c): dryrun_multichip({DRYRUN_RANKS}) on one card, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (lines and lines[-1].startswith("dryrun matrix complete")
+            and lines[-1].count("(") == 4):
+        raise AssertionError("dryrun_multichip failed")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--collab-scale", type=float, default=REHEARSAL_SCALE,
@@ -2588,7 +3156,9 @@ def main(argv=None) -> int:
     stamp("per-link attention kernel checks")
     torch.cuda.empty_cache()
     batch = presets.COLLAB_LIKE_BATCH
-    ds = load_dataset(dev)
+    # the collab-like PPR, cached for phase 15's ranks
+    ppr_cache = tempfile.mkdtemp(prefix="chip_smoke_ppr_")
+    ds = load_dataset(dev, ppr_cache_dir=ppr_cache)
     entries.append((phase_lookup(dev, ds, tabs["combined"]["cfg"], batch),
                     "lookup route"))
     stamp("fused lookup kernel")
@@ -2611,6 +3181,10 @@ def main(argv=None) -> int:
             f"{v['bf16_grad_gap']:.2e}" for k, v in dense.items()
             if "bf16_loss_gap" in v) + f"  [{card}]")
     stamp("dense attention route (phase 14)")
+    torch.cuda.empty_cache()
+    phase_mesh(dev, card, ds, tabs, ppr_cache, batch)
+    shutil.rmtree(ppr_cache, ignore_errors=True)
+    stamp("the mesh path (phase 15)")
     del ds
     torch.cuda.empty_cache()
 

@@ -8,14 +8,26 @@ for the CPU. ``--jax-cache-dir`` is accepted and means nothing here;
 ``--no-pallas-attention`` takes the dense attention route
 (``models/link_transformer.py``), and ``--dump-att`` with ``--save-as``
 writes the best checkpoint's attention weights over the test positives to
-``attention_weights.npz``. The mesh and multi-host flags, whose paths the
-port does not have yet, raise ``NotImplementedError`` before any data is
-read (``ROADMAP.md`` Queue 1 item 8).
+``attention_weights.npz``.
+
+``--mesh D,G`` trains and evaluates over a data x graph mesh of D*G
+ranks, a process each (``parallel/``). Without the multi-process flags
+the command spawns the D*G ranks on this host itself, one per visible GPU
+(fewer GPUs than ranks raise), or gloo processes under ``--platform cpu``.
+Across hosts, or under a launcher, every rank runs the command with
+``--coordinator host:port --num-processes D*G --process-id r`` (the
+process count counts ranks, not hosts as in the JAX CLI), or with
+``--distributed auto`` under torchrun. Rank 0 prints and writes the
+checkpoints.
 
 Usage:
   python -m lpformer_tpu_torch.cli.run --config ogbl-collab-existing
   python -m lpformer_tpu_torch.cli.run --data_name synthetic \\
       --platform cpu --epochs 3                                # smoke
+  python -m lpformer_tpu_torch.cli.run --data_name synthetic \\
+      --platform cpu --mesh 2,2 --epochs 1                      # 4 ranks
+  torchrun --nproc-per-node 4 -m lpformer_tpu_torch.cli.run --mesh 2,2 \\
+      --distributed auto --config ogbl-collab-existing
 """
 from __future__ import annotations
 
@@ -123,17 +135,25 @@ def build_parser() -> argparse.ArgumentParser:
                    action="store_false",
                    help="the dense masked attention route")
     p.add_argument("--context-parallel", action="store_true",
-                   help="not ported yet (a mesh path)")
+                   help="with --mesh: shard each link's context set over "
+                        "the 'graph' axis (merged two-pass softmax)")
     p.add_argument("--mesh", type=str, default=None,
-                   help="not ported yet: 'D,G' (data x graph) or 'auto'")
+                   help="'D,G' (data x graph) or 'auto': train + eval over "
+                        "a mesh of D*G ranks with row-sharded context "
+                        "state")
+    # multi-process bring-up (parallel/distributed.py)
     p.add_argument("--coordinator", type=str, default=None,
-                   help="multi-host: not ported yet")
+                   help="coordinator address host:port (the same on every "
+                        "rank; rank 0 serves it)")
     p.add_argument("--num-processes", type=int, default=None,
-                   help="multi-host: not ported yet")
+                   help="total number of ranks (D*G)")
     p.add_argument("--process-id", type=int, default=None,
-                   help="multi-host: not ported yet")
+                   help="this rank (0-based; 0 owns checkpoint writes and "
+                        "logging)")
     p.add_argument("--distributed", type=str, default=None,
-                   choices=["auto"], help="multi-host: not ported yet")
+                   choices=["auto"],
+                   help="'auto': torchrun's environment (RANK, WORLD_SIZE, "
+                        "LOCAL_RANK, MASTER_ADDR, MASTER_PORT)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="micro-batches per optimizer step (memory cap)")
     p.add_argument("--steps-per-call", type=int, default=1,
@@ -158,16 +178,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--remove-pos-edges", action="store_true",
                    default=False, help=argparse.SUPPRESS)
     return p
-
-
-def refuse_unported(args) -> None:
-    """Raise for a flag whose path the port does not have yet."""
-    item8 = "ROADMAP.md Queue 1 item 8 (parallel paths)"
-    for dest in ("mesh", "context_parallel", "coordinator", "num_processes",
-                 "process_id", "distributed"):
-        if getattr(args, dest) not in (None, False):
-            raise NotImplementedError(
-                f"--{dest.replace('_', '-')}: not ported yet ({item8})")
 
 
 def resolve_platform(platform):
@@ -327,10 +337,49 @@ def apply_config(parser: argparse.ArgumentParser, argv):
     return parser.parse_args(argv)
 
 
+def _cli_rank(rank, argv):
+    return main(argv)
+
+
+def _local_ranks(args, device) -> int:
+    """The ranks of a --mesh run without the multi-process flags; on CUDA
+    one visible GPU each, or this raises."""
+    import torch
+
+    from lpformer_tpu_torch.train.trainer import parse_mesh
+
+    gpus = 0 if device == "cpu" else torch.cuda.device_count()
+    if args.mesh == "auto":
+        return max(gpus, 1)
+    d, g = parse_mesh(args.mesh)
+    if device != "cpu" and gpus < d * g:
+        raise RuntimeError(f"--mesh {args.mesh} needs {d * g} GPUs, one per "
+                           f"rank; {gpus} visible")
+    return d * g
+
+
 def main(argv=None):
     args = apply_config(build_parser(), argv)
-    refuse_unported(args)
     device = resolve_platform(args.platform)
+    if args.mesh and args.grad_accum > 1:
+        raise ValueError("--grad-accum is not supported with --mesh")
+
+    from lpformer_tpu_torch.parallel import distributed
+
+    # bring-up precedes any device work
+    joined = distributed.initialize(
+        coordinator=args.coordinator, num_processes=args.num_processes,
+        process_id=args.process_id, auto=args.distributed == "auto",
+        device=device)
+    if args.mesh and not joined:
+        n = _local_ranks(args, device)
+        if n > 1:
+            # one command on one host, as the JAX CLI: rank 0's result
+            return distributed.spawn_local(_cli_rank, n, (argv,),
+                                           device=device, timeout_s=None)[0]
+        distributed.init_single(device)
+    if not distributed.is_coordinator():
+        args.non_verbose = True
 
     from lpformer_tpu_torch.utils.seed import init_seed
 
@@ -338,7 +387,9 @@ def main(argv=None):
     init_seed(args.seed, device or "cuda")
 
     t0 = time.perf_counter()
-    ds = load_dataset(args, device)
+    # on a mesh the whole dataset stays on the host: each rank puts only
+    # its shards on its device
+    ds = load_dataset(args, "cpu" if args.mesh else device)
     if not args.non_verbose:
         print(f"[data] {args.data_name}: {ds.num_nodes} nodes, "
               f"{len(ds.train_pos)} train links, read and built in "
@@ -375,6 +426,8 @@ def main(argv=None):
         resume=args.resume,
         save_every=args.save_every,
         grad_accum=args.grad_accum,
+        mesh=args.mesh,
+        context_parallel=args.context_parallel,
         steps_per_call=args.steps_per_call,
     )
     result = train_data(targs, cfg, ds)
@@ -415,9 +468,14 @@ def _dump_attention(args, cfg, ds):
 
 def eval_checkpoint(args, cfg, ds):
     """Checkpoint-only evaluation (reference run.py:17-87) of checkpoints
-    that either package wrote, on the dataset's device."""
+    that either package wrote, on the dataset's device; with ``--mesh``
+    (and ``--context-parallel``) through the mesh's sharded scorer, so a
+    checkpoint evaluates on graphs no one card holds."""
+    from lpformer_tpu_torch.parallel import distributed
     from lpformer_tpu_torch.train.optim import tree_map
-    from lpformer_tpu_torch.train.trainer import TrainArgs, run_eval
+    from lpformer_tpu_torch.train.trainer import (
+        TrainArgs, parse_mesh, run_eval,
+    )
     from lpformer_tpu_torch.utils import checkpoint as ckpt
 
     targs = TrainArgs(
@@ -426,6 +484,22 @@ def eval_checkpoint(args, cfg, ds):
         checkpoint_dir=args.checkpoint_dir,
     )
     dev = ds.graph.x.device
+    eval_ctx = None
+    if args.mesh:
+        from lpformer_tpu_torch.parallel import make_mesh
+        from lpformer_tpu_torch.parallel.eval import ShardedEvalContext
+
+        d, g = parse_mesh(args.mesh)
+        link_dev = d if args.context_parallel else d * g
+        if args.test_batch_size % link_dev:
+            raise ValueError(
+                f"test_batch_size {args.test_batch_size} must divide over "
+                f"{link_dev} link-sharding devices")
+        dev = distributed.rank_device(dev)
+        eval_ctx = ShardedEvalContext(
+            cfg, make_mesh(data=d, graph=g, device=dev), ds,
+            context_parallel=args.context_parallel)
+    say = print if distributed.is_coordinator() else (lambda *a: None)
     results = []
     for run in range(1, args.runs + 1):
         suffix = f"_seed-{run}" if args.runs > 1 else ""
@@ -437,13 +511,13 @@ def eval_checkpoint(args, cfg, ds):
         if state is None:
             raise FileNotFoundError(path)
         params = tree_map(lambda t: t.to(dev), state["params"])
-        r = run_eval(params, cfg, ds, targs)
-        print(f">>> Seed={run}")
+        r = run_eval(params, cfg, ds, targs, sharded=eval_ctx)
+        say(f">>> Seed={run}")
         for k, v in r.items():
-            print(f"  {k} = {v}")
+            say(f"  {k} = {v}")
         results.append(r[args.metric][-1])
-    print("\nMean Performance:")
-    print(f"    {args.metric} -->", float(np.mean(results)))
+    say("\nMean Performance:")
+    say(f"    {args.metric} -->", float(np.mean(results)))
     return results
 
 

@@ -9,7 +9,9 @@
 The node encodings are propagated ONCE and reused for every batch, and
 every batch has the same shape (the last one padded). The JAX package
 scores groups of eight batches in one launch (a TPU dispatch measure);
-here each batch is one call, with the same scores.
+here each batch is one call, with the same scores. ``sharded=`` (a
+``parallel.eval.ShardedEvalContext``) scores over a mesh of ranks: every
+rank runs the same sweep and gets every score.
 """
 from __future__ import annotations
 
@@ -32,6 +34,17 @@ def make_score_fn(cfg: LPFormerConfig) -> Callable:
         return lt.score_links(params, cfg, h)
 
     return fn
+
+
+def _resolve_eval_fns(cfg: LPFormerConfig, ds: LinkPredDataset, sharded):
+    """(score_fn, prop, graph_train, graph_test): the single-device
+    callables, or the mesh's from a ShardedEvalContext (the same
+    signatures, so the sweeps below are shared)."""
+    if sharded is None:
+        return (make_score_fn(cfg),
+                lambda params, g: lt.propagate(params, cfg, g),
+                ds.graph, ds.graph_test)
+    return sharded.score, sharded.prop, sharded.sg, sharded.sg_test
 
 
 @torch.no_grad()
@@ -65,18 +78,19 @@ def test_standard(
     k_list: Sequence[int] = (20, 50, 100),
     heart: bool = False,
     with_mrr: bool = None,
+    sharded=None,
 ) -> Dict[str, tuple]:
     """Reference test(): {metric: (train, valid, test)} with Hits@K for
     ``k_list`` and MRR when ``with_mrr`` (default: the dataset's metric
     is MRR). With ``heart`` the negatives are per positive, [P, K, 2],
-    and the result is the per-positive MRR alone."""
-    score_fn = make_score_fn(cfg)
-    X_train = lt.propagate(params, cfg, ds.graph)
-    X_test = (X_train if ds.graph_test is ds.graph
-              else lt.propagate(params, cfg, ds.graph_test))
+    and the result is the per-positive MRR alone. ``sharded``: a
+    ShardedEvalContext, to score over its mesh."""
+    score_fn, prop, g_train, g_test = _resolve_eval_fns(cfg, ds, sharded)
+    X_train = prop(params, g_train)
+    X_test = X_train if g_test is g_train else prop(params, g_test)
 
     def sc(edges, test_set=False):
-        g = ds.graph_test if test_set else ds.graph
+        g = g_test if test_set else g_train
         X = X_test if test_set else X_train
         return torch.as_tensor(
             score_edges(score_fn, params, g, X, edges, batch_size))
@@ -109,16 +123,17 @@ def test_citation2(
     cfg: LPFormerConfig,
     ds: LinkPredDataset,
     batch_size: int = 32768,
+    sharded=None,
 ) -> Dict[str, tuple]:
     """Reference test_citation2 (testing.py:50-74): the negatives are
-    [P, K] target ids, each scored against its positive's source."""
-    score_fn = make_score_fn(cfg)
-    X = lt.propagate(params, cfg, ds.graph)
-    X_test = (X if ds.graph_test is ds.graph
-              else lt.propagate(params, cfg, ds.graph_test))
+    [P, K] target ids, each scored against its positive's source.
+    ``sharded``: a ShardedEvalContext, to score over its mesh."""
+    score_fn, prop, g_train, g_test = _resolve_eval_fns(cfg, ds, sharded)
+    X = prop(params, g_train)
+    X_test = X if g_test is g_train else prop(params, g_test)
 
     def sc(edges, test_set=False):
-        g = ds.graph_test if test_set else ds.graph
+        g = g_test if test_set else g_train
         return torch.as_tensor(score_edges(
             score_fn, params, g, X_test if test_set else X, edges,
             batch_size))

@@ -150,6 +150,51 @@ def _compact(ids, cls, ps, pt, valid, budget: int, num_nodes: int):
             place(pt, 0.0), v2, dropped)
 
 
+@dataclasses.dataclass(frozen=True)
+class LinkRows:
+    """The adjacency and PPR rows of each node of an endpoint list [B],
+    gathered out of the padded row tables. The gather is apart from the
+    extraction so that the mesh path can fetch the rows from tables
+    row-sharded over its ranks (parallel/sharded_step.py) while one device
+    gathers them locally; the extraction (:func:`extract_context_rows`) is
+    the same either way.
+
+    adj_nbrs  [B, A] int32  sorted neighbour ids (pad = num_nodes)
+    adj_vals  [B, A] f32    self-PPR ppr(u, N(u))
+    adj_ranks [B, A] int32  train-edge ranks (-1 = none), or None
+    ppr_nbrs  [B, P] int32  sorted PPR support (pad = num_nodes)
+    ppr_vals  [B, P] f32    ppr(u, v)
+    ppr_flags [B, P] bool   "v is in u's unmasked 1-hop", or None
+    """
+
+    adj_nbrs: torch.Tensor
+    adj_vals: Optional[torch.Tensor]
+    adj_ranks: Optional[torch.Tensor]
+    ppr_nbrs: torch.Tensor
+    ppr_vals: torch.Tensor
+    ppr_flags: Optional[torch.Tensor]
+
+
+def gather_link_rows(
+    adj_rows: PaddedRows,
+    ppr_rows: PaddedRows,
+    idx: torch.Tensor,
+    with_ranks: bool = True,
+) -> LinkRows:
+    """The rows of the nodes ``idx`` [B], gathered on one device; the
+    ranks only ``with_ranks`` (the masked branch reads them)."""
+    idx = idx.long()
+
+    def take(t):
+        return None if t is None else t[idx]
+
+    return LinkRows(
+        adj_nbrs=adj_rows.nbrs[idx], adj_vals=take(adj_rows.vals),
+        adj_ranks=take(adj_rows.ranks) if with_ranks else None,
+        ppr_nbrs=ppr_rows.nbrs[idx], ppr_vals=ppr_rows.vals[idx],
+        ppr_flags=take(ppr_rows.flags))
+
+
 def extract_context(
     adj_rows: PaddedRows,
     ppr_rows: PaddedRows,
@@ -160,16 +205,38 @@ def extract_context(
     gen: Optional[torch.Generator] = None,
     train: bool = False,
 ) -> ContextTables:
-    """Context extraction for the links (src[b], tgt[b]). ``mask_ranks``
-    is the batch's masked-rank bitmap (``masking.batch_mask_ranks``);
-    with ``train`` and a generator ``gen`` on the tables' device, the
-    candidates are subsampled at ``cfg.att_drop``."""
-    n = adj_rows.num_nodes
-    src, tgt = src.long(), tgt.long()
+    """Context extraction for the links (src[b], tgt[b]): each endpoint's
+    rows gathered locally, then :func:`extract_context_rows`.
+    ``mask_ranks`` is the batch's masked-rank bitmap
+    (``masking.batch_mask_ranks``); with ``train`` and a generator ``gen``
+    on the tables' device, the candidates are subsampled at
+    ``cfg.att_drop``."""
+    masked = mask_ranks is not None
+    return extract_context_rows(
+        gather_link_rows(adj_rows, ppr_rows, src, with_ranks=masked),
+        gather_link_rows(adj_rows, ppr_rows, tgt, with_ranks=masked),
+        cfg, adj_rows.num_nodes, mask_ranks=mask_ranks, gen=gen,
+        train=train)
+
+
+def extract_context_rows(
+    rows_s: LinkRows,
+    rows_t: LinkRows,
+    cfg: ContextConfig,
+    num_nodes: int,
+    mask_ranks: Optional[torch.Tensor] = None,
+    gen: Optional[torch.Generator] = None,
+    train: bool = False,
+) -> ContextTables:
+    """Context extraction over each link's gathered rows (the module
+    docstring's semantics); ``rows_s`` / ``rows_t`` are the rows of the
+    links' sources and targets, with their ranks when ``mask_ranks`` is
+    given."""
+    n = num_nodes
     all_mode = cfg.mask_mode == "all"
-    a_n = adj_rows.nbrs[src]            # [B, A] neighbours of src
-    b_n = adj_rows.nbrs[tgt]            # [B, A] neighbours of tgt
-    p_n = ppr_rows.nbrs[src] if all_mode else None   # src's PPR support
+    a_n = rows_s.adj_nbrs               # [B, A] neighbours of src
+    b_n = rows_t.adj_nbrs               # [B, A] neighbours of tgt
+    p_n = rows_s.ppr_nbrs if all_mode else None   # src's PPR support
     valid_a = a_n < n
     valid_b = b_n < n
 
@@ -177,10 +244,9 @@ def extract_context(
         a_in_tgt = row_contains(b_n, a_n)
         b_in_src = row_contains(a_n, b_n)
     else:
-        ranks_a = adj_rows.ranks[src]   # rank of edge (src, v)
-        ranks_b = adj_rows.ranks[tgt]   # rank of edge (tgt, v)
-        hit_a = masking.rank_is_masked(mask_ranks, ranks_a)
-        hit_b = masking.rank_is_masked(mask_ranks, ranks_b)
+        # the rank of edge (src, v) and of edge (tgt, v)
+        hit_a = masking.rank_is_masked(mask_ranks, rows_s.adj_ranks)
+        hit_b = masking.rank_is_masked(mask_ranks, rows_t.adj_ranks)
         valid_a &= ~hit_a
         valid_b &= ~hit_b
         # membership in the MASKED opposite row: found there, at an entry
@@ -197,10 +263,10 @@ def extract_context(
 
     # self-side values ppr(u, N(u)) are host-precomputed on the adjacency
     # rows; only the cross values need a per-batch lookup
-    ppr_s_nbrs, ppr_s_vals = ppr_rows.nbrs[src], ppr_rows.vals[src]
-    ppr_t_nbrs, ppr_t_vals = ppr_rows.nbrs[tgt], ppr_rows.vals[tgt]
-    ps_a = adj_rows.vals[src]
-    pt_b = adj_rows.vals[tgt]
+    ppr_s_nbrs, ppr_s_vals = rows_s.ppr_nbrs, rows_s.ppr_vals
+    ppr_t_nbrs, ppr_t_vals = rows_t.ppr_nbrs, rows_t.ppr_vals
+    ps_a = rows_s.adj_vals
+    pt_b = rows_t.adj_vals
     pt_a = row_lookup_value(ppr_t_nbrs, ppr_t_vals, a_n)
     ps_b = row_lookup_value(ppr_s_nbrs, ppr_s_vals, b_n)
 
@@ -214,7 +280,7 @@ def extract_context(
         # membership in the UNMASKED neighbourhoods on purpose (reference
         # NOTE at link_transformer.py:438-441); "v in N(src)" for src's own
         # support is host-precomputed as the PPR rows' flags
-        in_a = ppr_rows.flags[src]
+        in_a = rows_s.ppr_flags
         in_b = row_contains(b_n, p_n)
         pt_n = row_lookup_value(ppr_t_nbrs, ppr_t_vals, p_n)
         thr_n1 = cfg.thresh_non1hop

@@ -12,8 +12,12 @@ indices and weights go to the device in one copy, and the loss is summed
 on the device and fetched once per epoch. Checkpoints
 (``utils/checkpoint.py``, the JAX package's file format) carry the
 parameters, the optimizer state, the step, the epoch and the seed, for
-a true resume. ``mesh`` is not ported yet and raises
-``NotImplementedError``.
+a true resume.
+
+``mesh`` ("D,G" or "auto") trains and evaluates over a data x graph mesh
+of ranks (``parallel/``): every rank runs this loop on the same seeded
+batches, the context tables row-sharded over the mesh; rank 0 alone
+prints, audits the budgets and writes checkpoints.
 """
 from __future__ import annotations
 
@@ -62,16 +66,12 @@ class TrainArgs:
     save_every: int = 0            # also checkpoint every N epochs (crash
                                    # recovery; 0 = only at best valid)
     grad_accum: int = 1            # micro-batches per optimizer step
-    mesh: Optional[str] = None
+    mesh: Optional[str] = None     # "D,G" (data x graph): train over a mesh
+    context_parallel: bool = False  # shard the context axis over 'graph'
     steps_per_call: int = 1        # optimizer steps per call of the step
                                    # loop (a host loop over K steps)
     audit_budgets: bool = True     # one-shot start-of-training overflow
                                    # audit of the context budget
-
-
-def _refuse_unported(args: TrainArgs) -> None:
-    if args.mesh is not None:
-        raise NotImplementedError("not ported yet: mesh")
 
 
 def overflow_audit(ds: LinkPredDataset, cfg: cfg_mod.LPFormerConfig,
@@ -155,16 +155,63 @@ def _save(path: str, state: step_mod.TrainState, epoch: int,
 
 
 def run_eval(params, cfg: cfg_mod.LPFormerConfig, ds: LinkPredDataset,
-             args: TrainArgs) -> Dict[str, tuple]:
+             args: TrainArgs, sharded=None) -> Dict[str, tuple]:
     """The harness the dataset needs (reference train_model.py:114-117):
     a citation dataset without HeaRT negatives takes the citation2 sweep,
-    every other test_standard."""
+    every other test_standard. ``sharded``: a ShardedEvalContext, to
+    score over its mesh."""
     if "citation" in ds.name.lower() and not ds.heart:
         return harness.test_citation2(params, cfg, ds,
-                                      batch_size=args.test_batch_size)
+                                      batch_size=args.test_batch_size,
+                                      sharded=sharded)
     return harness.test_standard(params, cfg, ds,
                                  batch_size=args.test_batch_size,
-                                 k_list=(20, 50, 100), heart=ds.heart)
+                                 k_list=(20, 50, 100), heart=ds.heart,
+                                 sharded=sharded)
+
+
+def parse_mesh(spec: str):
+    """'D,G' -> (d, g); 'auto' -> every rank on the data axis."""
+    if spec == "auto":
+        from lpformer_tpu_torch.parallel import distributed
+
+        return distributed.process_count(), 1
+    parts = spec.split(",")
+    if len(parts) != 2:
+        raise ValueError(f"--mesh expects 'D,G' or 'auto', got {spec!r}")
+    return int(parts[0]), int(parts[1])
+
+
+def _mesh_setup(args: TrainArgs, cfg, ds: LinkPredDataset, optimizer):
+    """The mesh branch's pieces (JAX trainer.py:275-311): this rank's
+    shards, the eval context and the sharded step."""
+    from lpformer_tpu_torch.parallel import (
+        distributed, make_mesh, make_sharded_train_step, partition_graph,
+        place_sharded_graph,
+    )
+    from lpformer_tpu_torch.parallel.eval import ShardedEvalContext
+
+    if args.grad_accum > 1:
+        raise ValueError("--grad-accum is not supported with --mesh")
+    d, g = parse_mesh(args.mesh)
+    link_dev = d if args.context_parallel else d * g
+    for name in ("batch_size", "test_batch_size"):
+        if getattr(args, name) % link_dev:
+            raise ValueError(f"{name} {getattr(args, name)} must divide "
+                             f"over {link_dev} link-sharding devices")
+    mesh = make_mesh(data=d, graph=g, device=distributed.rank_device(
+        ds.graph.x.device))
+    sg = place_sharded_graph(
+        partition_graph(ds.graph, g=g, d=d, mask_input=args.mask_input),
+        mesh)
+    eval_ctx = ShardedEvalContext(cfg, mesh, ds, sg_train=sg,
+                                  context_parallel=args.context_parallel)
+    step = make_sharded_train_step(
+        cfg, optimizer, mesh, ds.num_nodes, sg.rows_per_shard,
+        sg.ctx_rows_per_shard, num_negative=args.num_negative,
+        context_parallel=args.context_parallel,
+        steps_per_call=args.steps_per_call, mask_input=args.mask_input)
+    return sg, eval_ctx, step
 
 
 def train_loop(
@@ -188,11 +235,21 @@ def train_loop(
     JAX trainer's does, and the device generator re-seeds from
     ``rng_seed`` and the restored step (``_generator_seed``).
     ``step_losses``, when given, collects every step's loss as a device
-    tensor ([K] per call with ``steps_per_call`` = K > 1)."""
-    _refuse_unported(args)
+    tensor ([K] per call with ``steps_per_call`` = K > 1).
+
+    With ``args.mesh`` every rank of the mesh runs this with the same
+    arguments; the dataset may lie on the host, and each rank puts its
+    shards on its own device (``parallel.distributed.rank_device``). The
+    sharded step's generators derive from the run's seed and the step,
+    so a resume needs nothing more."""
+    from lpformer_tpu_torch.parallel import distributed
+
+    main_process = distributed.is_coordinator()
+    if not main_process:
+        args = dataclasses.replace(args, verbose=False)
     if rng_seed is None:
         rng_seed = seed
-    if args.audit_budgets and seed == 0:
+    if args.audit_budgets and seed == 0 and main_process:
         link_rate, entry_rate = overflow_audit(ds, cfg)
         if args.verbose or link_rate > 0.005:
             budgets = (f"budget_combined={cfg.budget_combined}"
@@ -207,6 +264,8 @@ def train_loop(
                   "context budget; compaction keeps the top-by-PPR "
                   "entries, but metrics may degrade.", flush=True)
     dev = ds.graph.x.device
+    if args.mesh:
+        dev = distributed.rank_device(dev)
     params = lt.init_lpformer(torch.Generator().manual_seed(rng_seed), cfg,
                               in_dim=int(ds.graph.x.shape[1]), device=dev)
     steps_per_epoch = max(
@@ -233,12 +292,25 @@ def train_loop(
             print(f"resumed from {args.resume} at epoch {start_epoch}")
     for p in optim.tree_leaves(state.params):
         p.requires_grad_(True)
-    train_step = step_mod.make_train_step(
-        cfg, optimizer, num_negative=args.num_negative,
-        mask_input=args.mask_input, double_propagate=args.double_propagate,
-        grad_accum=args.grad_accum, steps_per_call=args.steps_per_call)
-    mult = ds.mask_mult_device
-    bin_w = (ds.graph.edge_w > 0).float()
+    mult = ds.mask_mult_device.to(dev)
+    eval_ctx = None
+    if args.mesh:
+        sg, eval_ctx, sharded_step = _mesh_setup(args, cfg, ds, optimizer)
+        step_seed = _generator_seed(rng_seed, 0)
+
+        def train_step(state, graph, mult, bin_w, *links_and_gen):
+            # the sharded step keys its draws by (seed, step) itself
+            return sharded_step(state, sg, mult, *links_and_gen[:-1],
+                                step_seed)
+
+        bin_w = None
+    else:
+        train_step = step_mod.make_train_step(
+            cfg, optimizer, num_negative=args.num_negative,
+            mask_input=args.mask_input,
+            double_propagate=args.double_propagate,
+            grad_accum=args.grad_accum, steps_per_call=args.steps_per_call)
+        bin_w = (ds.graph.edge_w > 0).float()
     data_rng = np.random.default_rng(rng_seed)
     gen = torch.Generator(device=dev).manual_seed(
         _generator_seed(rng_seed, state.step))
@@ -283,12 +355,13 @@ def train_loop(
                   f"({time.time() - t0:.1f}s)", flush=True)
 
         if (args.save_every and model_save_name is not None
-                and epoch % args.save_every == 0):
+                and main_process and epoch % args.save_every == 0):
             # periodic crash-recovery checkpoint, paired with resume
             _save(model_save_name + ".latest.ckpt", state, epoch, seed)
 
         if epoch % args.eval_steps == 0:
-            results = run_eval(state.params, cfg, ds, args)
+            results = run_eval(state.params, cfg, ds, args,
+                               sharded=eval_ctx)
             for key_name, result in results.items():
                 if key_name in loggers:
                     loggers[key_name].add_result(seed, result)
@@ -298,7 +371,7 @@ def train_loop(
             if current > best_valid:
                 kill_cnt = 0
                 best_valid = current
-                if model_save_name is not None:
+                if model_save_name is not None and main_process:
                     _save(model_save_name + ".ckpt", state, epoch, seed)
             else:
                 kill_cnt += 1
@@ -314,7 +387,8 @@ def train_data(args: TrainArgs, cfg: cfg_mod.LPFormerConfig,
     ``save_as`` each run checkpoints under
     ``<checkpoint_dir>/<data_name>/<save_as>`` (``_seed-<run + 1>`` added
     when there are several runs)."""
-    _refuse_unported(args)
+    from lpformer_tpu_torch.parallel import distributed
+
     model_save_name = None
     if args.save_as is not None:
         model_save_name = os.path.join(args.checkpoint_dir, args.data_name,
@@ -336,8 +410,11 @@ def train_data(args: TrainArgs, cfg: cfg_mod.LPFormerConfig,
             run_name = model_save_name + f"_seed-{run + 1}"
         train_loop(args, cfg, ds, loggers, run, run_name, rng_seed=rng_seed)
 
-    print(args.metric + "\n" + "-" * len(args.metric))
-    best_mean, best_var = loggers[args.metric].print_statistics()
+    main_process = distributed.is_coordinator()
+    if main_process:
+        print(args.metric + "\n" + "-" * len(args.metric))
+    best_mean, best_var = loggers[args.metric].print_statistics(
+        verbose=main_process)
     return (
         best_mean[1],
         f"{best_mean[1]} ± {best_var[1]}",

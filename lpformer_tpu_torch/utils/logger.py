@@ -27,10 +27,14 @@ class ResultsLogger:
         r = np.asarray(self.results[run])
         return float(r[:, 1].max()) if len(r) else 0.0
 
-    def print_statistics(self):
+    def print_statistics(self, verbose: bool = True):
         """Print and return (mean_list, var_list) for (train@best,
         best_valid, test@best) x100 over the runs, as the reference
-        (:103-152)."""
+        (:103-152); ``verbose=False`` only returns them (the ranks of a
+        mesh other than rank 0)."""
+        import builtins
+
+        print = builtins.print if verbose else (lambda *a, **k: None)
         best_results = []
         for r in self.results:
             if not r:

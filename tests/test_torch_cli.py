@@ -84,16 +84,23 @@ def restore_torch_flags():
 
 
 @pytest.mark.parametrize("flag,exc", [
-    (["--mesh", "2,2"], NotImplementedError),
-    (["--context-parallel"], NotImplementedError),
-    (["--coordinator", "localhost:1234"], NotImplementedError),
-    (["--num-processes", "2"], NotImplementedError),
-    (["--distributed", "auto"], NotImplementedError),
-    (["--process-id", "1"], NotImplementedError),
+    # a CUDA mesh needs a GPU per rank; these tests run without one
+    (["--mesh", "2,2"], RuntimeError),
+    (["--mesh", "2,2", "--context-parallel"], RuntimeError),
+    # partial multi-process flags, and 'auto' outside torchrun
+    (["--coordinator", "localhost:1234"], ValueError),
+    (["--num-processes", "2"], ValueError),
+    (["--distributed", "auto"], ValueError),
+    (["--process-id", "1"], ValueError),
     (["--platform", "tpu"], ValueError),
 ])
 def test_refused_flags_raise_before_reading_data(tmp_path, flag, exc,
-                                                  restore_torch_flags):
+                                                  restore_torch_flags,
+                                                  monkeypatch):
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+              "LPFORMER_COORDINATOR", "LPFORMER_NUM_PROCESSES",
+              "LPFORMER_PROCESS_ID"):
+        monkeypatch.delenv(k, raising=False)
     # reading this dataset would raise FileNotFoundError
     argv = ["--data_name", "cora", "--data-dir", str(tmp_path / "none")]
     with pytest.raises(FileNotFoundError):

@@ -45,7 +45,10 @@ def test_no_jax_imports_in_source():
     "data/planetoid.py", "utils/seed.py", "utils/interop.py",
     "graft_entry.py", "evalx/analysis.py", "ops/segment.py",
     "utils/debug.py", "utils/profiling.py", "data/synthetic.py",
-    "graph/ppr.py",
+    "graph/ppr.py", "parallel/__init__.py", "parallel/mesh.py",
+    "parallel/distributed.py", "parallel/collectives.py",
+    "parallel/partition.py", "parallel/sharded_step.py",
+    "parallel/context_parallel.py", "parallel/eval.py",
 ])
 def test_kernel_modules_are_covered(module):
     """Each module that holds a kernel wrapper, and the CLI, the dataset

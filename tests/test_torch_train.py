@@ -410,9 +410,9 @@ def test_results_logger_matches_jax(runs, capsys):
     ("mask_input", True), ("heart", True),
 ])
 def test_unported_options_raise(both, field, value, tmp_path):
-    """Only ``mesh`` is still refused; each other option now runs one
-    epoch (tests/test_torch_{mask_input,grad_accum,checkpoint}.py hold
-    them to the JAX package)."""
+    """Each option runs one epoch (tests/test_torch_{mask_input,
+    grad_accum,checkpoint,parallel}.py hold them to the JAX package);
+    ``mesh`` 1,1 runs the sharded step on a mesh of this process alone."""
     _, td = both
     kw = {field: value}
     if field == "resume":
@@ -424,11 +424,12 @@ def test_unported_options_raise(both, field, value, tmp_path):
     args = ttrainer.TrainArgs(**dict(dict(epochs=1, verbose=False,
                                           checkpoint_dir=str(tmp_path)),
                                      **kw))
-    if field == "mesh":
-        with pytest.raises(NotImplementedError):
-            ttrainer.train_loop(args, TConfig(**COMMON), td, {}, 0)
-        return
+    from lpformer_tpu_torch.parallel import distributed
+
     losses = []
-    assert ttrainer.train_loop(args, TConfig(**COMMON), td, {}, 0,
-                               step_losses=losses) == 0.0
+    try:
+        assert ttrainer.train_loop(args, TConfig(**COMMON), td, {}, 0,
+                                   step_losses=losses) == 0.0
+    finally:
+        distributed.shutdown()     # the 1 x 1 mesh's process group
     assert losses and all(bool(torch.isfinite(x).all()) for x in losses)
