@@ -1,11 +1,13 @@
 """Smoke run of the PyTorch/CUDA port (lpformer_tpu_torch) on one H100.
 
     python3 chip_smoke.py [--collab-scale S] [--deterministic-ab]
+                          [--ppa-only]
 
 With no arguments phase 12 reads the collab npz at REHEARSAL_SCALE;
 ``--collab-scale 1.0`` reads it at ogbl-collab's full size, and
 ``--deterministic-ab`` adds phase 12's A/B of torch's deterministic
-algorithms.
+algorithms. ``--ppa-only`` runs the build and phase 16 alone, and prints
+no ok line.
 
 Phases, each printing its own lines:
   1. device: requires CUDA; prints the card's name and power limit;
@@ -136,6 +138,24 @@ and, on the collab-like dataset, the dense attention route:
      generator seed (row 4 launched once more a forward under remat), and
      a grad_accum=2 step of the combined table against the monolithic one
      (rows 1-3), each pair's ms and peak memory;
+ 16. the ppa-like preset (presets.py: 576,000 nodes, 15,000,000 train
+     edges, dim 64, batch 32768, the combined table of 96, the residual
+     GCN; 1,000,000 uniform negative pairs a split,
+     measure.ppa_like_dataset): (a) the cold host build (no PPR cache),
+     whose propagation layout must be the BlockedBELL of kb = 5 and no ELL;
+     (b) one GCN layer's SpMM at [576k, 64] against a single BucketedELL
+     and a static BlockedCOO (SPMM_TOL), its tier sweeps counted; (c) rows
+     1-3 on the inputs the preset's own training batch gives them
+     (measure.recording_kernel_inputs: the positive and the negative half,
+     bf16) against their plain versions, row 2's per-class weight grads
+     also against their sums in f64 (SUM_TOL); (d) the residual step pair in
+     bf16 and in f32 (STEP_* and STEP_F32_*), then 8 steps with the
+     default dropouts, rows 1-3 launched once per call and no other
+     kernel; (e) the classic table's step pair (64 | 128 | 128) with the
+     pairwise block's remat on by the rule, rows 4 / 5 / 3 launched 4 / 2
+     / 2 times; (f) run_eval -> test_standard at batch 32768 over every
+     split: scores finite, Hits@20/50/100 in [0, 1], row 1 launched once
+     per score batch, one batch against the plain path;
 then graft_entry.entry()'s forward once (row 4), and the CLI,
 ``lpformer_tpu_torch.cli.run.main``, in a scratch working directory:
  12. scripts/make_rehearsal_npz.py writes the schema-exact collab npz
@@ -168,6 +188,9 @@ kernel's launches from its path's run: rows 1-3 the collab-like combined
 train_loop, rows 4-5 the classic one, rows 6-7 phase 7, row 8 phase 6),
 the card line again, and as the last line {"ok": true, "device": {...}}.
 Any failure exits nonzero before that line. Nothing here imports JAX.
+Whether it passes or fails, the script leaves no process running: it
+adopts its descendants' orphans and, at its end, stops and reaps every
+child still alive, naming each on stderr.
 """
 from __future__ import annotations
 
@@ -180,6 +203,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import argparse
 import subprocess
@@ -287,7 +311,9 @@ MESH_BF16_GCN = ("node_encoder", "gnn_norm")
 # 0.1% of the valid slots exceeds 20-fold (tests/test_torch_pe_attention.py,
 # at B 2048 on the CPU). dkeys holds BWD_TOL with its
 # elements at the leaky ReLU's kink held to an f64 witness
-# (measure.kink_exempt); dq and datt hold BWD_TOL.
+# (measure.kink_exempt); dq and datt hold BWD_TOL. Phase 16 holds row 2's
+# per-class sums (dw1cat, dg, db, dcb) on the ppa-like training batch's
+# tables the same way (measure.mixed_bwd_f64).
 SUM_TOL, SUM_TOL_MEAN = 1e-3, 1e-5
 # Phase 12's --checkpoint eval scores against the training run's eval of
 # the same parameters, max |diff| of the probabilities: row 4 adds each
@@ -309,6 +335,81 @@ FUSED_LOOKUP = "LPFORMER_FUSED_LOOKUP"
 
 def log(*a):
     print(*a, flush=True)
+
+
+# prctl option: orphaned descendants are re-parented to this process
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def _adopt_orphans():
+    """Make this process the reaper of its descendants' orphans (Linux), so
+    every process the run starts, however deep, is its child by the time
+    :func:`_stop_children` looks."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(
+            PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _child_pids() -> list:
+    """This process's children, (pid, command line), read from /proc."""
+    me, kids = os.getpid(), []
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            if ppid == me:
+                with open(f"/proc/{d}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode(
+                        errors="replace").strip()
+                kids.append((int(d), cmd))
+        except (OSError, ValueError, IndexError):
+            continue
+    return kids
+
+
+def _stop_children():
+    """Stop and reap every process of this run still alive at its end:
+    multiprocessing's resource tracker (phase 15's ranks start it), then
+    any other child or adopted orphan, SIGTERM and after 5 s SIGKILL. Each
+    one is named on stderr, which leaves the last line of stdout alone."""
+    from lpformer_tpu_torch.parallel import distributed
+
+    distributed.stop_resource_tracker()
+    for _ in range(8):
+        kids = _child_pids()
+        if not kids:
+            return
+        for pid, cmd in kids:
+            print(f"chip_smoke: stopping process {pid} left running: {cmd}",
+                  file=sys.stderr, flush=True)
+            try:
+                os.kill(pid, signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+        live = {pid for pid, _ in kids}
+        deadline = time.monotonic() + 5.0
+        while live:
+            for pid in list(live):
+                try:
+                    if os.waitpid(pid, os.WNOHANG)[0]:
+                        live.discard(pid)
+                except ChildProcessError:
+                    live.discard(pid)
+            if live and time.monotonic() > deadline:
+                for pid in live:
+                    try:
+                        os.kill(pid, signal.SIGKILL)
+                        os.waitpid(pid, 0)
+                    except (ProcessLookupError, ChildProcessError):
+                        pass
+                live = set()
+            time.sleep(0.05)
 
 
 def tables():
@@ -1299,15 +1400,14 @@ def _device_bytes(obj):
     return 0
 
 
-def phase_citation2_build(dev):
-    """The citation2-like preset's dataset (measure.citation2_like_dataset:
-    1,000,000 nodes, 5,000,000 train edges, 1000 negative targets per eval
-    positive): its propagation layout must be the BlockedBELL of 8 x 8
-    tiles, and no ELL."""
+def _big_build(label, make, kb):
+    """A big preset's dataset from ``make()``, timed: its propagation
+    layout must be the BlockedBELL of ``kb`` x ``kb`` tiles, and no ELL;
+    logs the build, the layout and the bundle's device memory."""
     t0 = time.perf_counter()
-    ds = measure.citation2_like_dataset(dev)
+    ds = make()
     g = ds.graph
-    log(f"citation2-like dataset: {time.perf_counter() - t0:.1f} s host "
+    log(f"{label} dataset: {time.perf_counter() - t0:.1f} s host "
         f"build ({ds.num_nodes} nodes, {g.num_edges} directed edges); "
         f"layout {'bbell' if g.bbell is not None else 'none'} kb "
         f"{None if g.bbell is None else g.bbell.kb}, "
@@ -1315,19 +1415,47 @@ def phase_citation2_build(dev):
         f"{0 if g.bbell is None else sum(x is not None for x in g.bbell.tiles)}"
         f" tiles, ell {g.ell is not None}, blk {g.blk is not None}; the "
         f"bundle holds {_device_bytes(g) / 2**30:.2f} GiB on the card")
-    if g.bbell is None or g.bbell.kb != 8 or g.ell is not None:
-        raise AssertionError("the citation2-like bundle must carry the "
-                             "BlockedBELL with kb = 8 and no ELL")
+    if g.bbell is None or g.bbell.kb != kb or g.ell is not None:
+        raise AssertionError(f"the {label} bundle must carry the "
+                             f"BlockedBELL with kb = {kb} and no ELL")
     return ds
 
 
-def phase_citation2_spmm(dev, card, ds, dim, batch):
-    """One GCN layer's SpMM on the citation2-like graph at [N, dim], f32
-    and with bf16 gather, through spmm_bbell, against a single BucketedELL
-    and a static BlockedCOO built over the same graph for this check only
-    (an A/B of the layouts; the layout rule stays the JAX package's). Then
-    the mask_input arm: one batch of ``batch`` train links masked out of
-    the propagation weights (mask_edge_weights), renormalised on the card
+def phase_citation2_build(dev):
+    """The citation2-like preset's dataset (measure.citation2_like_dataset:
+    1,000,000 nodes, 5,000,000 train edges, 1000 negative targets per eval
+    positive): its propagation layout must be the BlockedBELL of 8 x 8
+    tiles, and no ELL."""
+    return _big_build("citation2-like",
+                      lambda: measure.citation2_like_dataset(dev), 8)
+
+
+def _counting_tier_sweeps(fn):
+    """``fn()`` with ops/spmm.py's tier sweeps counted: (its result, the
+    sweeps, their slot-chunk gathers)."""
+    from lpformer_tpu_torch.ops import spmm
+
+    real, chunks = spmm._tier_sweep, []
+
+    def counted(nb, ws, xg, out_dtype, kc):
+        chunks.append(-(-nb.shape[1] // kc))
+        return real(nb, ws, xg, out_dtype, kc)
+
+    spmm._tier_sweep = counted
+    try:
+        return fn(), len(chunks), sum(chunks)
+    finally:
+        spmm._tier_sweep = real
+
+
+def phase_big_spmm(dev, card, ds, dim, batch, masked=True):
+    """One GCN layer's SpMM on a big preset's graph at [N, dim], f32 and
+    with bf16 gather, through spmm_bbell, against a single BucketedELL and
+    a static BlockedCOO built over the same graph for this check only (an
+    A/B of the layouts; the layout rule stays the JAX package's), with the
+    BlockedBELL layer's tier sweeps counted. Then, with ``masked``, the
+    mask_input arm: one batch of ``batch`` train links masked out of the
+    propagation weights (mask_edge_weights), renormalised on the card
     (gcn_norm_device), through the BlockedCOO re-weighted by its edge ids
     (the JAX package's big-graph mask_input layout) against the
     BucketedELL re-weighted by its slots' edge ids."""
@@ -1347,6 +1475,11 @@ def phase_citation2_spmm(dev, card, ds, dim, batch):
         f"BlockedBELL {g.bbell.slot_total} slots")
     x = torch.randn(g.num_nodes, dim, device=dev,
                     generator=torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        _, sweeps, gathers = _counting_tier_sweeps(
+            lambda: spmm.spmm_bbell(g.bbell, x, diag=g.w_diag))
+    log(f"BlockedBELL layer: {sweeps} tier sweeps, {gathers} slot-chunk "
+        f"gathers (kb {g.bbell.kb}, {len(g.bbell.tiles)} tiles)")
 
     def ab(label, arms, ref):
         for gd in (None, torch.bfloat16):
@@ -1375,6 +1508,10 @@ def phase_citation2_spmm(dev, card, ds, dim, batch):
         "BlockedCOO": lambda gd: spmm.spmm_blocked(
             blk, None, x, diag=g.w_diag, gather_dtype=gd),
     }, "BucketedELL")
+    if not masked:
+        del bell, blk, x
+        torch.cuda.empty_cache()
+        return
 
     links = torch.as_tensor(ds.train_pos[:batch]).to(dev)
     mr = masking.batch_mask_ranks(g.adj_rows, links[:, 0], links[:, 1],
@@ -1544,6 +1681,228 @@ def phase_citation2_train(dev, card, ds, tabs, cfg, batch, steps=8):
         raise AssertionError("a citation2-like training loss is not finite")
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+
+
+def _mixed_sums_check(t, a, label):
+    """Row 2's per-class weight-grad sums (dw1cat, dg, db, dcb) on the
+    backward inputs ``a`` against the same sums of the plain version's
+    per-slot terms in f64 (measure.mixed_bwd_f64), over the sums of their
+    magnitudes, held as SUM_TOL's comment says; the plain version's own
+    distance to them logged beside."""
+    got = t["bwd"](**a)
+    want = in_link_chunks(t["bwd_plain"], a, 2)
+    wit = measure.mixed_bwd_f64(**a)
+    ok_, text = True, []
+    for n, i, ex, mag in zip(("dw1cat", "dg", "db", "dcb"), (2, 3, 4, 6),
+                             wit[:4], wit[4:]):
+        err = (got[i].double() - ex).abs()
+        perr = (want[i].double() - ex).abs()
+        worst = float((err / mag.clamp_min(1e-300)).max())
+        mean = float(err.mean() / mag.mean().clamp_min(1e-300))
+        ok_ &= bool((err <= SUM_TOL * mag).all()) and mean <= SUM_TOL_MEAN
+        pworst = float((perr / mag.clamp_min(1e-300)).max())
+        pmean = float(perr.mean() / mag.mean().clamp_min(1e-300))
+        text.append(f"{n} {worst:.2e}/{mean:.2e} (plain {pworst:.2e}/"
+                    f"{pmean:.2e})")
+    log(f"kernel bwd combined {label}: per-class weight grads against their "
+        f"f64 sums, over the sums of their terms' magnitudes (max/mean; tol "
+        f"{SUM_TOL}/{SUM_TOL_MEAN}): " + ", ".join(text))
+    if not ok_:
+        raise AssertionError(f"combined backward kernel at {label}: weight "
+                             f"grads off their f64 sums")
+
+
+def phase_ppa_kernels(dev, card, ds, tabs, cfg, batch):
+    """Phase 16 (c): rows 1-3 on the inputs the ppa-like preset's own
+    training batch gives them (B = batch, C = the combined budget, O = dh
+    = dim, bf16; dropout off, the held steps' batch and negatives):
+    one step's loss and backward through the kernels, recording each
+    call's inputs (measure.recording_kernel_inputs), then each recorded
+    call of rows 1 and 2 (the positive and the negative half) against its
+    plain version (TOL, BWD_TOL), row 2's per-class weight grads also
+    against their f64 sums (SUM_TOL), and each of row 3 against its plain
+    version beside index_add_ (profile_kernels.scatter_report)."""
+    from lpformer_tpu_torch.ops import masking, scatter
+    from lpformer_tpu_torch.profile_kernels import scatter_report
+    from lpformer_tpu_torch.train import step as step_mod
+
+    t = tabs["combined"]
+    c = _nodrop(cfg)
+    params = _fresh_params(dev, c, int(ds.graph.x.shape[1]))
+    pos, neg, w = _step_inputs(ds, batch, dev)
+    mr = masking.batch_mask_ranks(ds.graph.adj_rows, pos[:, 0], pos[:, 1],
+                                  ds.mask_mult_device, weight=w)
+    with measure.recording_kernel_inputs() as rec:
+        step_mod.loss_fn(params, c, ds.graph, pos[:, 0], pos[:, 1], neg[0],
+                         neg[1], w, mr, None).backward()
+    del params
+    halves = ("positives", "negatives")
+    if len(rec["fwd"]) != 2 or len(rec["bwd"]) != 2:
+        raise AssertionError(f"recorded {len(rec['fwd'])} forward and "
+                             f"{len(rec['bwd'])} backward calls, not 2")
+    for half, a in zip(halves, rec["fwd"]):
+        n = a["valid"].sum(1)
+        log(f"valid slots per link (ppa-like train batch, {half}): mean "
+            f"{n.float().mean():.2f}, quantiles 0-100% by 5: "
+            f"{_count_quantiles(n)} of {a['valid'].shape[1]}")
+        _fwd_check("combined", t, a, torch.bfloat16,
+                   f"ppa-like step's {half}",
+                   (5, 5) if half == "positives" else (3, 2))
+    for a in rec["bwd"]:
+        half = next(h for h, f in zip(halves, rec["fwd"])
+                    if f["valid"].data_ptr() == a["valid"].data_ptr())
+        _bwd_check_timed("combined", t, a, torch.bfloat16,
+                         f"ppa-like step's {half}",
+                         (5, 5) if half == "positives" else (3, 2))
+        _mixed_sums_check(t, a, f"ppa-like step's {half}")
+    for i, (ids, ct, n, live) in enumerate(rec["scatter"]):
+        scatter_report(card, f"ppa-like step's call {i + 1}", ids, ct, n,
+                       live, log=log)
+        plain_ms = time_ms(
+            lambda: scatter.scatter_rows_add_plain(ids, ct, n, live), 3, 1)
+        log(f"scatter ppa-like call {i + 1} plain version {plain_ms:.4f} ms")
+    if len(rec["scatter"]) != 2:
+        raise AssertionError(f"{len(rec['scatter'])} scatter calls, not 2")
+    del rec
+    torch.cuda.empty_cache()
+
+
+def phase_ppa_train(dev, card, ds, tabs, cfg, batch, steps=8):
+    """Phase 16 (d): the ppa-like step with the residual GCN, one step
+    through the kernels against the plain versions in bf16 (STEP_*) and in
+    f32 (STEP_F32_*), dropout off and fixed negatives; then ``steps``
+    steps with the default dropouts: every loss finite, rows 1-3 launched
+    once per call, every other kernel never; stage times and peak
+    memory."""
+    t = tabs["combined"]
+    label = "combined (ppa-like, residual)"
+    _step_pair(dev, ds, label, tabs, cfg, batch)
+    torch.cuda.empty_cache()
+    _step_pair(dev, ds, label, tabs,
+               dataclasses.replace(cfg, matmul_dtype="float32"), batch)
+    torch.cuda.empty_cache()
+    counters = _zeroed(tabs)
+    losses, _ = _timed_steps(dev, card, ds, label, cfg, batch, steps)
+    want = dict.fromkeys(counters, 0)
+    for name in (t["fwd_entry"][0], t["bwd_entry"][0], "scatter_rows_add"):
+        want[name] = 2 * steps * cfg.trans_layers
+    lv = torch.stack(losses).cpu()
+    log("ppa-like steps: losses " + ", ".join(f"{x:.4f}" for x in lv.tolist()))
+    _check_launches(f"ppa-like {steps} steps", counters, want, card)
+    if not bool(torch.isfinite(lv).all()):
+        raise AssertionError("a ppa-like training loss is not finite")
+
+
+def phase_ppa_classic(dev, card, ds, tabs, batch):
+    """Phase 16 (e): the ppa-like classic table (64 | 128 | 128, C = 320),
+    where the auto rule turns the pairwise block's remat on: one bf16 step
+    through the kernels against the plain versions (STEP_*), rows 4, 5
+    and 3 launched as the kernel step's calls say (row 4 once more a
+    forward under remat), every other kernel never; its peak memory."""
+    from lpformer_tpu_torch import presets
+    from lpformer_tpu_torch.models import link_transformer as lt
+
+    cfg = presets.PPA_LIKE_CLASSIC_CONFIG
+    c = sum(cfg.context.class_budgets)
+    if not lt.remat_pairwise_on(cfg, batch, c):
+        raise AssertionError("the auto rule must turn remat on here")
+    t = tabs["classic"]
+    counters = _zeroed(tabs)
+    torch.cuda.reset_peak_memory_stats()
+    _step_pair(dev, ds, "classic (ppa-like, residual, remat)", tabs, cfg,
+               batch)
+    log(f"ppa-like classic step pair (C {c}): peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB  [{card}]")
+    want = dict.fromkeys(counters, 0)
+    want[t["fwd_entry"][0]] = 4 * cfg.trans_layers
+    want[t["bwd_entry"][0]] = 2 * cfg.trans_layers
+    want["scatter_rows_add"] = 2 * cfg.trans_layers
+    _check_launches("ppa-like classic step (remat)", counters, want, card)
+    torch.cuda.empty_cache()
+
+
+def phase_ppa_eval(dev, card, ds, tabs, cfg, batch):
+    """Phase 16 (f): run_eval -> test_standard at test batch ``batch``
+    over every split (the 1,000,000 negative pairs of each of valid and
+    test among them): every score finite, Hits@20/50/100 in [0, 1] (the
+    dataset's metric, Hits@100: no MRR), row 1 launched once per score
+    batch and no other kernel, one batch of negatives through the kernel
+    within SCORE_TOL of the plain path; propagate ms and links/s."""
+    from lpformer_tpu_torch.evalx import harness
+    from lpformer_tpu_torch.models import link_transformer as lt
+    from lpformer_tpu_torch.ops.context import extract_context
+    from lpformer_tpu_torch.train import trainer
+
+    t = tabs["combined"]
+    params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
+                              in_dim=int(ds.graph.x.shape[1]), device=dev)
+    sizes = [len(x) for x in (ds.train_pos_val, ds.valid_pos, ds.test_pos,
+                              ds.valid_neg, ds.test_neg)]
+    n_batches = sum(-(-m // batch) for m in sizes)
+    with _recording(harness, "score_edges", []) as scored:
+        counters = _zeroed(tabs)
+        t0 = time.perf_counter()
+        res = trainer.run_eval(params, cfg, ds,
+                               trainer.TrainArgs(test_batch_size=batch))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    links = sum(len(x) for x in scored)
+    with torch.no_grad():
+        prop_ms = time_ms(lambda: lt.propagate(params, cfg, ds.graph), 2, 1)
+    log(f"run_eval -> test_standard (ppa-like, batch {batch}): "
+        f"{wall * 1e3:.1f} ms wall, {links} links in {n_batches} batches; "
+        + ", ".join(f"{k} " + "/".join(f"{x:.4f}" for x in v)
+                    for k, v in res.items()) + " (train/valid/test); "
+        f"propagate {prop_ms:.1f} ms; {links / wall:.0f} links/s over the "
+        f"sweep  [{card}]")
+    want = dict.fromkeys(counters, 0)
+    want[t["fwd_entry"][0]] = n_batches * cfg.trans_layers
+    _check_launches("ppa-like sweep", counters, want, card)
+    if [len(x) for x in scored] != sizes or not all(
+            np.isfinite(x).all() for x in scored):
+        raise AssertionError("ppa-like scores not finite or of the wrong "
+                             "shape")
+    if sorted(res) != ["Hits@100", "Hits@20", "Hits@50"] or not all(
+            0.0 <= x <= 1.0 for v in res.values() for x in v):
+        raise AssertionError(f"ppa-like metrics out of range: {res}")
+
+    # the first batch of the valid negatives: kernel vs plain, and its
+    # valid slots per link
+    with torch.no_grad():
+        X = lt.propagate(params, cfg, ds.graph)
+        src, tgt = _scores_vs_plain(dev, ds.graph, t, harness.make_score_fn(
+            cfg), params, X, ds.valid_neg[:batch], "ppa-like")
+        n = extract_context(ds.graph.adj_rows, ds.graph.ppr_rows, src, tgt,
+                            cfg.context).valid.sum(1)
+    log(f"valid slots per link (ppa-like eval sweep's negatives): mean "
+        f"{n.float().mean():.2f}, quantiles 0-100% by 5: "
+        f"{_count_quantiles(n)} of {cfg.budget_combined}")
+
+
+def phase_ppa(dev, card, tabs, stamp):
+    """Phase 16, the ppa-like preset (presets.py: 576,000 nodes, 15,000,000
+    train edges, dim 64, batch 32768, the combined table of 96, residual
+    GCN; measure.ppa_like_dataset): (a) the cold host build, a
+    BlockedBELL of kb 5 and no ELL; (b) one GCN layer's SpMM against a
+    single BucketedELL and a static BlockedCOO; (c) rows 1-3 on the
+    preset's own extracted tables; (d) the residual step pair in bf16 and
+    f32, then 8 timed steps; (e) the classic table's step pair under
+    remat; (f) the Hits@100 sweep."""
+    from lpformer_tpu_torch import presets
+
+    cfg, batch = presets.PPA_LIKE_CONFIG, presets.PPA_LIKE_BATCH
+    ds = _big_build("ppa-like", lambda: measure.ppa_like_dataset(dev), 5)
+    stamp("ppa-like build (phase 16 a)")
+    phase_big_spmm(dev, card, ds, cfg.dim, batch, masked=False)
+    phase_ppa_kernels(dev, card, ds, tabs, cfg, batch)
+    stamp("ppa-like SpMM and kernel checks (phase 16 b, c)")
+    phase_ppa_train(dev, card, ds, tabs, cfg, batch)
+    phase_ppa_classic(dev, card, ds, tabs, batch)
+    stamp("ppa-like training (phase 16 d, e)")
+    phase_ppa_eval(dev, card, ds, tabs, cfg, batch)
+    stamp("ppa-like sweep (phase 16 f)")
+    del ds
+    torch.cuda.empty_cache()
 
 
 def _snapshot(state):
@@ -3121,11 +3480,23 @@ def main(argv=None) -> int:
     ap.add_argument("--deterministic-ab", action="store_true",
                     help="time phase 12's step with torch's deterministic "
                     "algorithms on and off, and trace what they swap")
+    ap.add_argument("--ppa-only", action="store_true",
+                    help="run the build and phase 16 (the ppa-like preset) "
+                    "alone; prints no ok line")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 1
+    _adopt_orphans()
+    try:
+        return _run(opts)
+    finally:
+        _stop_children()
+
+
+def _run(opts) -> int:
+    """Every phase in order; main() stops what is left running after."""
     from lpformer_tpu_torch import presets
 
     # the lookup route is chosen here, per phase, not by the caller's shell
@@ -3143,6 +3514,10 @@ def main(argv=None) -> int:
     phase_build()
     stamp("build")
     tabs = tables()
+    if opts.ppa_only:
+        phase_ppa(dev, card, tabs, stamp)
+        log(card_line())
+        return 0
     # each kernel's entry, and the path whose run counts it
     entries = []
     for layout in tabs:
@@ -3215,7 +3590,7 @@ def main(argv=None) -> int:
     cfg, batch = presets.CITATION2_LIKE_CONFIG, presets.CITATION2_LIKE_BATCH
     ds = phase_citation2_build(dev)
     stamp("citation2-like build")
-    phase_citation2_spmm(dev, card, ds, cfg.dim, batch)
+    phase_big_spmm(dev, card, ds, cfg.dim, batch)
     phase_citation2_kernels(dev, card, tabs, cfg, batch, ds.num_nodes + 1)
     stamp("citation2-like SpMM and kernel checks")
     phase_citation2_train(dev, card, ds, tabs, cfg, batch)
@@ -3224,6 +3599,8 @@ def main(argv=None) -> int:
     stamp("citation2-like eval")
     del ds
     torch.cuda.empty_cache()
+
+    phase_ppa(dev, card, tabs, stamp)
 
     phase_graft_entry(dev, tabs)
     phase_cli_collab(dev, card, tabs, opts.collab_scale,

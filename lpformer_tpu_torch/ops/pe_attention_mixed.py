@@ -308,9 +308,12 @@ def fused_pe_link_attention_mixed_bwd_plain(
     dxc = dxj.to(kdt).float()
 
     def by_class(x):        # sum of [B, C, W] rows per class -> [K, W]
-        out = torch.zeros((k_n, x.shape[-1]), dtype=torch.float32,
-                          device=x.device)
-        return out.index_add_(0, e.reshape(-1), x.reshape(-1, x.shape[-1]))
+        # a reduction per class: an index_add_ into K rows adds on the
+        # card with atomics, f32 chains of up to B * C terms, which at the
+        # ppa-like train batch's 400k valid slots read 2e-4 from the f64
+        # sums, where the kernel reads 3e-7 (PERF.md section 6)
+        return torch.stack([torch.where(sel[..., None], x, 0.0).sum((0, 1))
+                            for sel in classes])
 
     dcb = by_class(dxj)
     dw2 = torch.zeros((k_n, dh, o), dtype=torch.float32, device=keys.device)

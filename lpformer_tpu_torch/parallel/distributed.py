@@ -160,6 +160,26 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def _resource_tracker_running() -> bool:
+    from multiprocessing import resource_tracker
+
+    return getattr(resource_tracker._resource_tracker, "_fd", None) is not None
+
+
+def stop_resource_tracker() -> None:
+    """Stop multiprocessing's resource tracker, a process that starting a
+    spawned process starts and that otherwise outlives the ranks until
+    this process exits. The next spawn starts it again."""
+    import gc
+    from multiprocessing import resource_tracker
+
+    # the ranks' queue unregisters its semaphores before the tracker stops
+    gc.collect()
+    stop = getattr(resource_tracker._resource_tracker, "_stop", None)
+    if stop is not None:
+        stop()
+
+
 def _rank_main(fn, rank, nprocs, port, device, backend, threads, args,
                queue):
     os.environ.update({"LPFORMER_COORDINATOR": f"127.0.0.1:{port}",
@@ -188,8 +208,11 @@ def spawn_local(
     ``initialize(device=device, backend=backend)``; returns the ranks'
     results in rank order. ``fn``, ``args`` and the results are pickled,
     so ``fn`` is a module-level function. ``threads`` > 0 sets each rank's
-    torch threads (0: CPU ranks share this host's cores). Raises, after stopping every rank, when a rank fails or
-    the ranks take longer than ``timeout_s`` in all (None: no limit)."""
+    torch threads (0: CPU ranks share this host's cores). Leaves no
+    process behind: every rank is joined, and multiprocessing's resource
+    tracker stopped if this call started it. Raises, after stopping every
+    rank, when a rank fails or the ranks take longer than ``timeout_s`` in
+    all (None: no limit)."""
     import multiprocessing as mp
     import queue as queue_mod
     import time
@@ -197,6 +220,8 @@ def spawn_local(
     if not threads and device is not None and torch.device(device).type == "cpu":
         threads = max(1, (os.cpu_count() or 1) // nprocs)
     ctx = mp.get_context("spawn")
+    # starting a spawned process starts multiprocessing's resource tracker
+    tracker_was_running = _resource_tracker_running()
     results = ctx.Queue()
     port = free_port()
     procs = [ctx.Process(target=_rank_main, daemon=False, args=(
@@ -232,6 +257,10 @@ def spawn_local(
             if p.is_alive():
                 p.kill()
                 p.join()
+        results.close()
+        del results
+        if not tracker_was_running:
+            stop_resource_tracker()
     if failed is None and any(p.exitcode != 0 for p in procs):
         failed = "a rank exited with " + str([p.exitcode for p in procs])
     if failed is not None:

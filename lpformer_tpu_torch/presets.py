@@ -13,6 +13,14 @@
     graph (1M nodes, so its propagation runs the tiled BlockedBELL) at dim
     64 and batch 32768, on the combined table of budget 96, with the same
     synthetic generator settings (:245-256);
+  * ppa-like: bench.py:74-79 PRESETS["ppa-like"], the densest big graph
+    (576,000 nodes, 15M train edges, mean degree ~48, so its propagation
+    runs the BlockedBELL of kb 5) at dim 64 and batch 32768, on the
+    combined table of budget 96, with the same synthetic generator
+    settings (:245-256) and ``residual`` as configs/ogbl-ppa-existing.json
+    and scripts/replicate_existing.sh set it; and on the classic table of
+    its per-class budgets (the bench's --no-combined A/B), where the
+    pairwise block's remat turns on by the JAX package's rule;
   * pubmed-like: ``configs/pubmed-existing.json`` at its published widths
     (the repo's one ``mask_input`` configuration), every field the JSON
     leaves out at the JAX CLI's default (lpformer_tpu/cli/run.py), on the
@@ -69,6 +77,25 @@ CITATION2_LIKE_DATA = dict(
     feat_dim=96, eps=5e-4, adj_cap=96, ppr_cap=256,
 )
 CITATION2_LIKE_BATCH = 32_768
+
+# bench.py:74-79: 576,000 nodes, 15,000,000 train edges, feat = dim = 64,
+# batch 32768, 3 GCN layers, the combined budget 96 (its per-class budgets
+# 64 / 128 / 128 are the classic table's), bf16 matmul inputs (:172);
+# residual=True from configs/ogbl-ppa-existing.json (and the ogbl-ppa line
+# of scripts/replicate_existing.sh); the rest at the bench's defaults
+PPA_LIKE_CONFIG = dataclasses.replace(
+    COLLAB_LIKE_CONFIG, dim=64, budget_combined=96, budget_cn=64,
+    budget_onehop=128, budget_non1hop=128, residual=True)
+# the same on the classic table (C = 320), where B * C * dim * 4 = 2.7e9
+# bytes turns the pairwise block's remat on (remat_pairwise_on)
+PPA_LIKE_CLASSIC_CONFIG = dataclasses.replace(
+    PPA_LIKE_CONFIG, budget_combined=None)
+# bench.py:245-256's synthetic_dataset settings at the preset's sizes
+PPA_LIKE_DATA = dict(
+    seed=0, num_nodes=576_000, num_train=15_000_000, num_eval=1000,
+    feat_dim=64, eps=5e-4, adj_cap=96, ppr_cap=256,
+)
+PPA_LIKE_BATCH = 32_768
 
 # configs/pubmed-existing.json: dim 128, 1 GCN layer, every dropout 0.3,
 # thresholds 0 / 0.01 / 0.01, mask_input; the CLI's defaults for the rest

@@ -2,14 +2,17 @@
 trace.
 
     python -m lpformer_tpu_torch.profile_train [--classic | --ddi |
-                                               --citation2 | --pubmed] [steps]
+                                               --citation2 | --ppa |
+                                               --pubmed] [steps]
 
 Builds the collab-like dataset (presets.py), with the combined context
 table (COLLAB_LIKE_CONFIG) or with ``--classic`` the classic per-class
 table (COLLAB_LIKE_CLASSIC_CONFIG), or with ``--ddi`` the ddi-like dataset
 and preset (DDI_LIKE_CONFIG: dim 256, combined table), or with
 ``--citation2`` the citation2-like ones (CITATION2_LIKE_CONFIG: 1M nodes on
-the BlockedBELL, dim 64, batch 32768), or with ``--pubmed`` the
+the BlockedBELL, dim 64, batch 32768), or with ``--ppa`` the ppa-like ones
+(PPA_LIKE_CONFIG: 576,000 nodes on the BlockedBELL of kb 5, dim 64, batch
+32768, the residual GCN), or with ``--pubmed`` the
 pubmed-like ones (PUBMED_LIKE_CONFIG: f32, the classic table of C = 224,
 batch 1024, ``mask_input``: two propagations a step, the positive half's
 re-weighted), takes two warm-up training steps of the preset's batch with
@@ -41,8 +44,8 @@ from lpformer_tpu_torch.presets import (
     CITATION2_LIKE_BATCH, CITATION2_LIKE_CONFIG, CITATION2_LIKE_DATA,
     COLLAB_LIKE_BATCH, COLLAB_LIKE_CLASSIC_CONFIG, COLLAB_LIKE_CONFIG,
     COLLAB_LIKE_DATA, DDI_LIKE_BATCH, DDI_LIKE_CONFIG, DDI_LIKE_DATA,
-    PUBMED_LIKE_BATCH, PUBMED_LIKE_CONFIG, PUBMED_LIKE_DATA,
-    PUBMED_LIKE_L2, PUBMED_LIKE_LR,
+    PPA_LIKE_BATCH, PPA_LIKE_CONFIG, PPA_LIKE_DATA, PUBMED_LIKE_BATCH,
+    PUBMED_LIKE_CONFIG, PUBMED_LIKE_DATA, PUBMED_LIKE_L2, PUBMED_LIKE_LR,
 )
 from lpformer_tpu_torch.train import optim, step as step_mod
 from lpformer_tpu_torch.utils.measure import (
@@ -51,7 +54,7 @@ from lpformer_tpu_torch.utils.measure import (
 
 
 def main(steps: int = 5, classic: bool = False, ddi: bool = False,
-         citation2: bool = False, pubmed: bool = False,
+         citation2: bool = False, pubmed: bool = False, ppa: bool = False,
          top: int = 15) -> None:
     dev = resolve_device()
     card = card_line()
@@ -65,6 +68,8 @@ def main(steps: int = 5, classic: bool = False, ddi: bool = False,
     elif citation2:
         cfg, data, batch = (CITATION2_LIKE_CONFIG, CITATION2_LIKE_DATA,
                             CITATION2_LIKE_BATCH)
+    elif ppa:
+        cfg, data, batch = PPA_LIKE_CONFIG, PPA_LIKE_DATA, PPA_LIKE_BATCH
     else:
         cfg = COLLAB_LIKE_CLASSIC_CONFIG if classic else COLLAB_LIKE_CONFIG
         data, batch = COLLAB_LIKE_DATA, COLLAB_LIKE_BATCH
@@ -153,7 +158,10 @@ if __name__ == "__main__":
                        help="the ddi-like preset (dim 256)")
     which.add_argument("--citation2", action="store_true",
                        help="the citation2-like preset (1M nodes, dim 64)")
+    which.add_argument("--ppa", action="store_true",
+                       help="the ppa-like preset (576k nodes, residual GCN)")
     which.add_argument("--pubmed", action="store_true",
                        help="the pubmed-like preset (mask_input, f32)")
     args = ap.parse_args()
-    main(args.steps, args.classic, args.ddi, args.citation2, args.pubmed)
+    main(args.steps, args.classic, args.ddi, args.citation2, args.pubmed,
+         args.ppa)

@@ -6,6 +6,8 @@ Used by chip_smoke.py, ``python -m lpformer_tpu_torch.profile_eval`` and
 """
 from __future__ import annotations
 
+import contextlib
+import inspect
 import statistics
 import subprocess
 import time
@@ -171,6 +173,33 @@ def citation2_like_dataset(device, seed=0):
     ds.valid_neg = rng.integers(0, ds.num_nodes, (len(ds.valid_pos), 1000))
     ds.test_neg = rng.integers(0, ds.num_nodes, (len(ds.test_pos), 1000))
     ds.name = "synthetic-citation2-like"
+    return ds
+
+
+# uniform negative pairs each of the ppa-like sweep's valid and test splits
+# takes: ogbl-ppa's 3,000,000 shared test negatives, cut to a third to keep
+# chip_smoke.py's clock
+PPA_LIKE_NEGATIVES = 1_000_000
+
+
+def ppa_like_dataset(device, seed=0, data=None, negatives=PPA_LIKE_NEGATIVES):
+    """The ppa-like preset's synthetic dataset (presets.py; ``data``
+    replaces its settings) as the ogbl-ppa sweep takes it: valid_neg and
+    test_neg replaced by ``negatives`` uniform node pairs each from a
+    numpy generator of ``seed``, named so that run_eval takes
+    test_standard, with Hits@100 (cli/run.py:default_metric's ogbl-ppa
+    metric) as the dataset's metric."""
+    import numpy as np
+
+    from lpformer_tpu_torch.data.synthetic import synthetic_dataset
+    from lpformer_tpu_torch.presets import PPA_LIKE_DATA
+
+    ds = synthetic_dataset(**(data or PPA_LIKE_DATA), metric="Hits@100",
+                           device=device)
+    rng = np.random.default_rng(seed)
+    ds.valid_neg = rng.integers(0, ds.num_nodes, (negatives, 2))
+    ds.test_neg = rng.integers(0, ds.num_nodes, (negatives, 2))
+    ds.name = "synthetic-ppa-like"
     return ds
 
 
@@ -373,6 +402,67 @@ def classic_bwd_f64(keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att,
     return tuple(out)
 
 
+def mixed_bwd_f64(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias,
+                  att, m, l, g_out, delta):
+    """``classic_bwd_f64`` for ``fused_pe_link_attention_mixed_bwd_plain``
+    on the combined table: the per-class sums over slots (dw1cat, dg, db,
+    dcb) of its own f32 per-slot terms, each taken in f64, then the same
+    four sums of the terms' magnitudes. All eight in f64."""
+    from lpformer_tpu_torch.ops.pe_attention_mixed import (
+        attend_backward, ln_affine, ln_backward,
+    )
+
+    k_n, _, dh = w1.shape
+    o = keys.shape[-1]
+    e = ecls.long()
+    w1s, b1s, gs, bs = w1[e], b1[e], g[e], b[e]
+
+    def direction(x0, x1):
+        xhat, r, y = ln_affine(x0, x1, w1s[..., 0, :], w1s[..., 1, :], b1s,
+                               gs, bs)
+        return xhat, r, y, torch.relu(y).to(w2f.dtype).float()
+
+    (xa, ra, ya, ha), (xb, rb, yb, hb) = direction(ps, pt), direction(pt, ps)
+    del w1s, b1s, gs, bs
+    w2 = w2f.float()
+    sels = [e == k for k in range(k_n)]
+    pe_a = torch.zeros(keys.shape, dtype=torch.float32, device=keys.device)
+    pe_b = torch.zeros_like(pe_a)
+    for k, sel in enumerate(sels):
+        pe_a[sel] = ha[sel] @ w2[k]
+        pe_b[sel] = hb[sel] @ w2[k]
+    # xj summed in the plain forward's order
+    xj = keys.float() + pe_a + pe_b + cbias[e]
+    del pe_a, pe_b
+    dxj, _, _ = attend_backward(xj, valid, q, att, m, l, g_out, delta)
+    del xj
+    f64 = dict(dtype=torch.float64, device=keys.device)
+    shapes = ((3 * k_n, dh), (k_n, dh), (k_n, dh), (k_n, o))
+    out = [torch.zeros(s, **f64) for s in shapes + shapes]
+
+    def add(i, k, terms):
+        """out[i][k] += the sum over the class's slots of the terms, and
+        out[i + 4][k] of their magnitudes (terms: f32 [n, W] tensors)."""
+        out[i][k] = sum(t.double().sum(0) for t in terms)
+        out[i + 4][k] = sum(t.double().abs().sum(0) for t in terms)
+
+    for k, sel in enumerate(sels):
+        add(3, k, (dxj[sel],))
+        dhh = dxj[sel].to(w2f.dtype).float() @ w2[k].T
+        xa_k, xb_k = xa[sel], xb[sel]
+        dya, dyb = dhh * (ya[sel] > 0), dhh * (yb[sel] > 0)
+        add(1, k, (dya * xa_k, dyb * xb_k))
+        add(2, k, (dya, dyb))
+        dpa = ln_backward(dya, xa_k, ra[sel], g[k])
+        dpb = ln_backward(dyb, xb_k, rb[sel], g[k])
+        p0, p1 = ps[sel][:, None], pt[sel][:, None]
+        for j, terms in enumerate(((p0 * dpa, p1 * dpb), (p1 * dpa, p0 * dpb),
+                                   (dpa, dpb))):
+            out[0][j * k_n + k] = sum(t.double().sum(0) for t in terms)
+            out[4][j * k_n + k] = sum(t.double().abs().sum(0) for t in terms)
+    return tuple(out)
+
+
 # Most dkeys elements past the tolerance that kink_exempt recomputes; more
 # than a handful is not the kink
 KINK_MAX = 1024
@@ -480,6 +570,55 @@ def _bwd_bound(a, slot_bytes):
                + 4 * k * dh * o + 4 * (k * o + o))
     return _bound(inputs + outputs, nv * 3 * 2 * dh * o,
                   nv * (40 * dh + 30 * o), kb) + (nv,)
+
+
+@contextlib.contextmanager
+def recording_kernel_inputs():
+    """Inside the block, the model's combined-table op and the context-key
+    gathers' scatter append every call's inputs to the lists yielded as
+    ``fwd``, ``bwd`` and ``scatter``: the op's forward inputs and its
+    backward wrapper's (m, l, the cotangent g_out and delta included), by
+    name, detached; the scatter's (ids, ct, n, live) as the gathers'
+    backward passes them (``ops/gather.py:_rows_sum``). So a training step
+    run inside gives the kernels' inputs at the tables a batch really
+    extracts. The calls still run the real wrappers."""
+    from lpformer_tpu_torch.models import link_transformer as lt
+    from lpformer_tpu_torch.ops import gather
+    from lpformer_tpu_torch.ops import pe_attention_mixed as pam
+
+    rec = {"fwd": [], "bwd": [], "scatter": []}
+    fwd_names = list(inspect.signature(
+        pam.fused_pe_link_attention_mixed_plain).parameters)
+    bwd_names = list(inspect.signature(
+        pam.fused_pe_link_attention_mixed_bwd_plain).parameters)
+    real_op, real_rows_sum = lt.fused_pe_link_attention_mixed, \
+        gather._rows_sum
+
+    def named(names, args):
+        return {n: a.detach() for n, a in zip(names, args)}
+
+    def bwd(*args):
+        rec["bwd"].append(named(bwd_names, args))
+        return pam.fused_pe_link_attention_mixed_bwd(*args)
+
+    def op(*args):
+        rec["fwd"].append(named(fwd_names, args))
+        return pam.MixedOp.apply(pam._fwd, bwd, *args)
+
+    def rows_sum(ids, ct, n, valid):
+        if ids.numel() >= gather._SCATTER_MIN_ROWS:    # the scatter's route
+            rec["scatter"].append((
+                ids.to(torch.int32).contiguous(), ct.detach().contiguous(), n,
+                None if valid is None else valid.contiguous()))
+        return real_rows_sum(ids, ct, n, valid)
+
+    lt.fused_pe_link_attention_mixed = op
+    gather._rows_sum = rows_sum
+    try:
+        yield rec
+    finally:
+        lt.fused_pe_link_attention_mixed = real_op
+        gather._rows_sum = real_rows_sum
 
 
 def scatter_inputs(dev, seed=0, b=B, c=C, d=O, n=N_ROWS,
