@@ -24,6 +24,7 @@ from lpformer_tpu_torch.graph.containers import (
     PaddedRows,
 )
 from lpformer_tpu_torch.ops import masking
+from lpformer_tpu_torch.utils import profiling
 
 # From this size propagation takes the tiled big-graph layout: the gather
 # row rate from a full [N, dim] table degrades with its size
@@ -90,67 +91,77 @@ def build_graph_bundle(
     ``build_ell`` (default: when no blocked layout exists) the BucketedELL
     with its slots' edge ids.
     """
-    dev = resolve_device(device)
-    s, d, w = pp.symmetrize(edge_src, edge_dst, edge_w, num_nodes)
-    ps_, pd_, pw_ = pp.sort_by_dst(
-        s.astype(np.int32), d.astype(np.int32), w, num_nodes
-    )
-    adj_csr = pp.edges_to_csr(s, d, w, num_nodes, coalesce=False)
-    entry_ranks = (None if mask_uniq_keys is None
-                   else masking.edge_ranks_for_csr(adj_csr, mask_uniq_keys))
-    adj_selfppr, ppr_in_adj = _cross_lookup(adj_csr, ppr_csr)
-    adj_bin = pp.binarize_csr(adj_csr)
-    # adjacency row values = self-PPR: on cap overflow the rows keep the
-    # highest-self-PPR neighbours
-    adj_bin = CSRGraph(
-        indptr=adj_bin.indptr, indices=adj_bin.indices,
-        weights=adj_selfppr, num_nodes=num_nodes,
-    )
-    adj_rows = PaddedRows.from_csr(adj_bin, cap=adj_cap,
-                                   entry_ranks=entry_ranks)
-    ppr_rows = PaddedRows.from_csr(ppr_csr, cap=ppr_cap,
-                                   entry_flags=ppr_in_adj)
-    deg = pp.out_degrees(np.asarray(edge_src, np.int64), num_nodes)
-    # static GCN norm D^-1/2 (A + I) D^-1/2 (PyG gcn_norm, fill 1.0)
-    deg_w = np.zeros(num_nodes, np.float64)
-    np.add.at(deg_w, pd_, pw_)
-    deg_w += 1.0
-    dinv = 1.0 / np.sqrt(deg_w)
-    w_norm = (dinv[ps_] * pw_ * dinv[pd_]).astype(np.float32)
-    w_diag = (dinv * dinv).astype(np.float32)
-    prop_ranks = (None if mask_uniq_keys is None
-                  else masking.edge_ranks_for_entries(ps_, pd_, mask_uniq_keys,
-                                                      num_nodes))
-    if build_blocked is None:
-        build_blocked = num_nodes >= BLOCKED_MIN_NODES
-    bbell = blk = None
-    if build_blocked and mask_input:
-        blk = BlockedCOO.from_coo(ps_, pd_, num_nodes, w_norm=w_norm,
-                                  with_edge_ids=True)
-    elif build_blocked:
-        bbell = BlockedBELL.from_coo(ps_, pd_, num_nodes, w_norm=w_norm)
-    if build_ell is None:
-        build_ell = bbell is None and blk is None
-    ell = (BucketedELL.from_sorted_coo(ps_, pd_, num_nodes, w_norm=w_norm)
-           if build_ell else None)
-    return GraphBundle(
-        x=np.asarray(x, np.float32),
-        edge_src=ps_.astype(np.int32),
-        edge_dst=pd_.astype(np.int32),
-        edge_w=pw_.astype(np.float32),
-        adj_rows=adj_rows,
-        ppr_rows=ppr_rows,
-        degree=deg.astype(np.float32),
-        num_nodes=num_nodes,
-        num_edges=int(len(ps_)),
-        ell=ell,
-        w_norm=w_norm,
-        w_diag=w_diag,
-        blk=blk,
-        bbell=bbell,
-        edge_rank=prop_ranks,
-    ).to(dev)
-
+    with profiling.span("build.bundle"):
+        dev = resolve_device(device)
+        with profiling.span("build.symmetrize"):
+            s, d, w = pp.symmetrize(edge_src, edge_dst, edge_w, num_nodes)
+            ps_, pd_, pw_ = pp.sort_by_dst(
+                s.astype(np.int32), d.astype(np.int32), w, num_nodes
+            )
+        with profiling.span("build.csr"):
+            adj_csr = pp.edges_to_csr(s, d, w, num_nodes, coalesce=False)
+            entry_ranks = (
+                None if mask_uniq_keys is None
+                else masking.edge_ranks_for_csr(adj_csr, mask_uniq_keys))
+        with profiling.span("build.cross_lookup"):
+            adj_selfppr, ppr_in_adj = _cross_lookup(adj_csr, ppr_csr)
+        with profiling.span("build.padded_rows"):
+            adj_bin = pp.binarize_csr(adj_csr)
+            # adjacency row values = self-PPR: on cap overflow the rows keep
+            # the highest-self-PPR neighbours
+            adj_bin = CSRGraph(
+                indptr=adj_bin.indptr, indices=adj_bin.indices,
+                weights=adj_selfppr, num_nodes=num_nodes,
+            )
+            adj_rows = PaddedRows.from_csr(adj_bin, cap=adj_cap,
+                                           entry_ranks=entry_ranks)
+            ppr_rows = PaddedRows.from_csr(ppr_csr, cap=ppr_cap,
+                                           entry_flags=ppr_in_adj)
+        with profiling.span("build.spmm_layout"):
+            deg = pp.out_degrees(np.asarray(edge_src, np.int64), num_nodes)
+            # static GCN norm D^-1/2 (A + I) D^-1/2 (PyG gcn_norm, fill 1.0)
+            deg_w = np.zeros(num_nodes, np.float64)
+            np.add.at(deg_w, pd_, pw_)
+            deg_w += 1.0
+            dinv = 1.0 / np.sqrt(deg_w)
+            w_norm = (dinv[ps_] * pw_ * dinv[pd_]).astype(np.float32)
+            w_diag = (dinv * dinv).astype(np.float32)
+            prop_ranks = (
+                None if mask_uniq_keys is None
+                else masking.edge_ranks_for_entries(ps_, pd_, mask_uniq_keys,
+                                                    num_nodes))
+            if build_blocked is None:
+                build_blocked = num_nodes >= BLOCKED_MIN_NODES
+            bbell = blk = None
+            if build_blocked and mask_input:
+                blk = BlockedCOO.from_coo(ps_, pd_, num_nodes, w_norm=w_norm,
+                                          with_edge_ids=True)
+            elif build_blocked:
+                bbell = BlockedBELL.from_coo(ps_, pd_, num_nodes,
+                                             w_norm=w_norm)
+            if build_ell is None:
+                build_ell = bbell is None and blk is None
+            ell = (BucketedELL.from_sorted_coo(ps_, pd_, num_nodes,
+                                               w_norm=w_norm)
+                   if build_ell else None)
+        with profiling.span("build.to_device"):
+            return GraphBundle(
+                x=np.asarray(x, np.float32),
+                edge_src=ps_.astype(np.int32),
+                edge_dst=pd_.astype(np.int32),
+                edge_w=pw_.astype(np.float32),
+                adj_rows=adj_rows,
+                ppr_rows=ppr_rows,
+                degree=deg.astype(np.float32),
+                num_nodes=num_nodes,
+                num_edges=int(len(ps_)),
+                ell=ell,
+                w_norm=w_norm,
+                w_diag=w_diag,
+                blk=blk,
+                bbell=bbell,
+                edge_rank=prop_ranks,
+            ).to(dev)
 
 @dataclasses.dataclass
 class LinkPredDataset:

@@ -26,6 +26,7 @@ import numpy as np
 
 from lpformer_tpu_torch.graph.containers import CSRGraph
 from lpformer_tpu_torch.graph.preprocess import edges_to_csr
+from lpformer_tpu_torch.utils import profiling
 from lpformer_tpu_torch.utils.build import build_shared
 
 _SOURCE = os.path.join(
@@ -114,54 +115,57 @@ def ppr_push_csr(
 ) -> CSRGraph:
     """Approximate PPR matrix (rows = sources) as a CSR over all nodes,
     each row sorted by node id."""
-    adj = edges_to_csr(
-        edge_src, edge_dst, None, num_nodes, coalesce=True, reduce="max"
-    )
-    indptr = np.ascontiguousarray(adj.indptr, dtype=np.int64)
-    indices = np.ascontiguousarray(adj.indices, dtype=np.int32)
-    out_degree = np.ascontiguousarray(indptr[1:] - indptr[:-1], dtype=np.int64)
+    with profiling.span("build.ppr_push"):
+        adj = edges_to_csr(
+            edge_src, edge_dst, None, num_nodes, coalesce=True, reduce="max"
+        )
+        indptr = np.ascontiguousarray(adj.indptr, dtype=np.int64)
+        indices = np.ascontiguousarray(adj.indices, dtype=np.int32)
+        out_degree = np.ascontiguousarray(indptr[1:] - indptr[:-1],
+                                          dtype=np.int64)
 
-    if method == "native":
-        lib = _load_native()
-        nnz = lib.ppr_push_run(
-            indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            indices.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            out_degree.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            float(alpha), float(eps), num_nodes, num_threads,
-        )
-        out_indptr = np.zeros(num_nodes + 1, dtype=np.int64)
-        out_indices = np.zeros(max(nnz, 1), dtype=np.int32)
-        out_vals = np.zeros(max(nnz, 1), dtype=np.float32)
-        lib.ppr_push_collect(
-            out_indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
-            out_indices.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
-            out_vals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
-        )
-        out_indices, out_vals = out_indices[:nnz], out_vals[:nnz]
-    elif method == "numpy":
-        js, vals = _push_numpy(
-            indptr, indices, out_degree.astype(np.float64), alpha, eps
-        )
-        out_indptr = np.zeros(num_nodes + 1, dtype=np.int64)
-        out_indptr[1:] = np.cumsum([len(j) for j in js])
-        out_indices = np.concatenate([np.asarray(j, np.int32) for j in js])
-        out_vals = np.concatenate([np.asarray(v, np.float32) for v in vals])
-    else:
-        raise ValueError(f"unknown PPR method: {method}")
+        if method == "native":
+            lib = _load_native()
+            nnz = lib.ppr_push_run(
+                indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                indices.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                out_degree.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                float(alpha), float(eps), num_nodes, num_threads,
+            )
+            out_indptr = np.zeros(num_nodes + 1, dtype=np.int64)
+            out_indices = np.zeros(max(nnz, 1), dtype=np.int32)
+            out_vals = np.zeros(max(nnz, 1), dtype=np.float32)
+            lib.ppr_push_collect(
+                out_indptr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+                out_indices.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+                out_vals.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+            )
+            out_indices, out_vals = out_indices[:nnz], out_vals[:nnz]
+        elif method == "numpy":
+            js, vals = _push_numpy(
+                indptr, indices, out_degree.astype(np.float64), alpha, eps
+            )
+            out_indptr = np.zeros(num_nodes + 1, dtype=np.int64)
+            out_indptr[1:] = np.cumsum([len(j) for j in js])
+            out_indices = np.concatenate(
+                [np.asarray(j, np.int32) for j in js])
+            out_vals = np.concatenate(
+                [np.asarray(v, np.float32) for v in vals])
+        else:
+            raise ValueError(f"unknown PPR method: {method}")
 
-    # sort each row by node id (the padded-row layout wants sorted rows;
-    # the reference coalesces to the same order, calc_ppr_scores.py:239)
-    row_src = np.repeat(
-        np.arange(num_nodes, dtype=np.int64), out_indptr[1:] - out_indptr[:-1]
-    )
-    key = row_src * num_nodes + out_indices.astype(np.int64)
-    order = np.argsort(key, kind="stable")
-    return CSRGraph(
-        indptr=out_indptr,
-        indices=out_indices[order],
-        weights=out_vals[order],
-        num_nodes=num_nodes,
-    )
+        # sort each row by node id (the padded-row layout wants sorted rows;
+        # the reference coalesces to the same order, calc_ppr_scores.py:239)
+        row_src = np.repeat(np.arange(num_nodes, dtype=np.int64),
+                            out_indptr[1:] - out_indptr[:-1])
+        key = row_src * num_nodes + out_indices.astype(np.int64)
+        order = np.argsort(key, kind="stable")
+        return CSRGraph(
+            indptr=out_indptr,
+            indices=out_indices[order],
+            weights=out_vals[order],
+            num_nodes=num_nodes,
+        )
 
 
 def ppr_dense_oracle(

@@ -57,6 +57,7 @@ from lpformer_tpu_torch.ops.pe_attention_mixed import (
     fused_pe_link_attention_mixed,
 )
 from lpformer_tpu_torch.ops.segment import masked_softmax
+from lpformer_tpu_torch.utils import profiling
 
 
 def _att_layer_init(gen, in_ch, out_ch, heads, node_dim, device) -> Dict:
@@ -119,17 +120,18 @@ def propagate(params: Dict, cfg: LPFormerConfig, graph: GraphBundle, *,
     batch-masked weights of ``mask_input``); the host-precomputed norm
     holds for the bundle's own weights only, so with ``edge_w`` the GCN
     recomputes it on the device."""
-    params = nn.cast_matmul_weights(params, cfg.mm_dtype)
-    x = nn.dropout(gen, graph.x, cfg.feat_drop, train)
-    x = gcn_apply(
-        params["node_encoder"], x, graph.edge_src, graph.edge_dst,
-        graph.edge_w if edge_w is None else edge_w, graph.num_nodes,
-        gnn_drop=cfg.gnn_drop, residual=cfg.residual, relu=cfg.relu,
-        gen=gen, train=train, mm_dtype=cfg.mm_dtype, ell=graph.ell,
-        norm=(graph.w_norm, graph.w_diag) if edge_w is None else None,
-        blk=graph.blk, bbell=graph.bbell,
-    )
-    return nn.layer_norm_apply(params["gnn_norm"], x)
+    with profiling.span("model.propagate"):
+        params = nn.cast_matmul_weights(params, cfg.mm_dtype)
+        x = nn.dropout(gen, graph.x, cfg.feat_drop, train)
+        x = gcn_apply(
+            params["node_encoder"], x, graph.edge_src, graph.edge_dst,
+            graph.edge_w if edge_w is None else edge_w, graph.num_nodes,
+            gnn_drop=cfg.gnn_drop, residual=cfg.residual, relu=cfg.relu,
+            gen=gen, train=train, mm_dtype=cfg.mm_dtype, ell=graph.ell,
+            norm=(graph.w_norm, graph.w_diag) if edge_w is None else None,
+            blk=graph.blk, bbell=graph.bbell,
+        )
+        return nn.layer_norm_apply(params["gnn_norm"], x)
 
 
 def _encoder_codes(cfg: LPFormerConfig):
@@ -179,16 +181,18 @@ def _att_layer_apply_fused(
                torch.stack(b_ln), torch.stack(w2f).to(xj_node.dtype),
                torch.stack(cbias), lp["att"], lp["bias"])
     if cfg.budget_combined is None:
-        out, _, _ = fused_pe_link_attention(
-            xj_node, ctx.src_ppr, ctx.tgt_ppr, ctx.valid, e1 + e2, *weights,
-            class_widths=cfg.context.class_budgets)
+        with profiling.span("model.pe_attention"):
+            out, _, _ = fused_pe_link_attention(
+                xj_node, ctx.src_ppr, ctx.tgt_ppr, ctx.valid, e1 + e2,
+                *weights, class_widths=cfg.context.class_budgets)
     else:
         ecls = torch.zeros_like(ctx.cls)
         for k, (_, code) in enumerate(_encoder_codes(cfg)):
             ecls = torch.where(ctx.cls == code, k, ecls)
-        out, _, _ = fused_pe_link_attention_mixed(
-            xj_node, ctx.src_ppr, ctx.tgt_ppr, ctx.valid, ecls, e1 + e2,
-            *weights)
+        with profiling.span("model.pe_attention"):
+            out, _, _ = fused_pe_link_attention_mixed(
+                xj_node, ctx.src_ppr, ctx.tgt_ppr, ctx.valid, ecls, e1 + e2,
+                *weights)
     out = nn.layer_norm_apply(lp["post_norm"], out)
     return nn.dropout(gen, out, cfg.dropout, train)
 
@@ -260,14 +264,15 @@ def _node_keys(lp: Dict, cfg: LPFormerConfig, X_node: torch.Tensor,
     slots carry the pad id N, so they gather it (the JAX package spreads
     them over real rows instead, a TPU gather-engine workaround); either
     way no route reads an invalid slot's key (alpha is exactly 0 there)."""
-    d = X_node.shape[-1]
-    W = lp["lin_r"]["w"]
-    kd = cfg.mm_dtype or X_node.dtype
-    X_proj = nn.matmul(X_node, W[:d], cfg.mm_dtype).to(kd)
-    X_proj = torch.cat(
-        [X_proj, torch.zeros((1, W.shape[1]), dtype=kd,
-                             device=X_proj.device)], dim=0)
-    return gather_rows_valid(X_proj, ctx.ids, ctx.valid)
+    with profiling.span("model.keys"):
+        d = X_node.shape[-1]
+        W = lp["lin_r"]["w"]
+        kd = cfg.mm_dtype or X_node.dtype
+        X_proj = nn.matmul(X_node, W[:d], cfg.mm_dtype).to(kd)
+        X_proj = torch.cat(
+            [X_proj, torch.zeros((1, W.shape[1]), dtype=kd,
+                                 device=X_proj.device)], dim=0)
+        return gather_rows_valid(X_proj, ctx.ids, ctx.valid)
 
 
 def _project_keys(lp: Dict, params: Dict, cfg: LPFormerConfig,
@@ -426,9 +431,14 @@ def forward(
         gather_rows(X_node, src) * gather_rows(X_node, tgt),
         mm_dtype=cfg.mm_dtype,
     )
-    ctx = extract_context(graph.adj_rows, graph.ppr_rows, src, tgt,
-                          cfg.context, mask_ranks=mask_ranks, gen=gen,
-                          train=train)
+    with profiling.span("model.context"):
+        ctx = extract_context(graph.adj_rows, graph.ppr_rows, src, tgt,
+                              cfg.context, mask_ranks=mask_ranks, gen=gen,
+                              train=train)
+        if profiling.active():
+            valid = profiling.real_rows(ctx.valid)
+            profiling.count("context.valid_slots", valid)
+            profiling.count("context.table_slots", valid.numel())
     pairwise, _ = calc_pairwise(params, cfg, X_node, src, tgt, ctx,
                                 gen=gen, train=train)
     return torch.cat([elementwise, pairwise], dim=-1)
@@ -439,8 +449,9 @@ def score_links(params: Dict, cfg: LPFormerConfig, h: torch.Tensor, *,
                 train: bool = False) -> torch.Tensor:
     """sigmoid(mlp_score(h)) -> [B] link probabilities
     (reference: other_models.py:173-179)."""
-    return nn.mlp_apply(
-        nn.cast_matmul_weights(params["score"], cfg.mm_dtype), h,
-        drop=cfg.pred_drop, gen=gen, train=train, sigmoid=True,
-        mm_dtype=cfg.mm_dtype,
-    )
+    with profiling.span("model.score"):
+        return nn.mlp_apply(
+            nn.cast_matmul_weights(params["score"], cfg.mm_dtype), h,
+            drop=cfg.pred_drop, gen=gen, train=train, sigmoid=True,
+            mm_dtype=cfg.mm_dtype,
+        )

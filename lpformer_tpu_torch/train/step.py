@@ -32,6 +32,7 @@ from lpformer_tpu_torch.models import link_transformer as lt
 from lpformer_tpu_torch.models.config import LPFormerConfig
 from lpformer_tpu_torch.ops import masking
 from lpformer_tpu_torch.train import optim
+from lpformer_tpu_torch.utils import profiling
 
 
 class TrainState(NamedTuple):
@@ -70,23 +71,26 @@ def loss_fn(
         if prop_edge_w is not None:
             raise ValueError("mask_input requires double_propagate (the "
                              "halves see different propagation weights)")
-        X_pos = X_neg = lt.propagate(params, cfg, graph, gen=gen, train=True)
-    h_pos = lt.forward(params, cfg, graph, pos_src, pos_tgt, gen=gen,
-                       train=True, mask_ranks=mask_ranks,
-                       prop_edge_w=prop_edge_w, X_node=X_pos)
-    pos_out = lt.score_links(params, cfg, h_pos, gen=gen, train=True)
-    h_neg = lt.forward(params, cfg, graph, neg_src, neg_tgt, gen=gen,
-                       train=True, mask_ranks=None, X_node=X_neg)
-    neg_out = lt.score_links(params, cfg, h_neg, gen=gen, train=True)
+        with profiling.span("train.propagate"):
+            X_pos = X_neg = lt.propagate(params, cfg, graph, gen=gen,
+                                         train=True)
+    with profiling.span("train.forward"):
+        h_pos = lt.forward(params, cfg, graph, pos_src, pos_tgt, gen=gen,
+                           train=True, mask_ranks=mask_ranks,
+                           prop_edge_w=prop_edge_w, X_node=X_pos)
+        pos_out = lt.score_links(params, cfg, h_pos, gen=gen, train=True)
+        h_neg = lt.forward(params, cfg, graph, neg_src, neg_tgt, gen=gen,
+                           train=True, mask_ranks=None, X_node=X_neg)
+        neg_out = lt.score_links(params, cfg, h_neg, gen=gen, train=True)
 
-    w = pos_weight
-    wsum = w.sum().clamp_min(1.0) if pos_denom is None else pos_denom
-    pos_loss = -(torch.log(pos_out + 1e-6) * w).sum() / wsum
-    # negatives replicate pos edges num_negative times; weight alike
-    nw = w.repeat_interleave(neg_out.shape[0] // w.shape[0])
-    nwsum = nw.sum().clamp_min(1.0) if neg_denom is None else neg_denom
-    neg_loss = -(torch.log(1.0 - neg_out + 1e-6) * nw).sum() / nwsum
-    return pos_loss + neg_loss
+        w = pos_weight
+        wsum = w.sum().clamp_min(1.0) if pos_denom is None else pos_denom
+        pos_loss = -(torch.log(pos_out + 1e-6) * w).sum() / wsum
+        # negatives replicate pos edges num_negative times; weight alike
+        nw = w.repeat_interleave(neg_out.shape[0] // w.shape[0])
+        nwsum = nw.sum().clamp_min(1.0) if neg_denom is None else neg_denom
+        neg_loss = -(torch.log(1.0 - neg_out + 1e-6) * nw).sum() / nwsum
+        return pos_loss + neg_loss
 
 
 def make_train_step(
@@ -156,16 +160,18 @@ def make_train_step(
                            neg[0, ng], neg[1, ng], w[pos], mask_ranks, gen,
                            prop_w, double_propagate, pos_denom=pos_denom,
                            neg_denom=neg_denom)
-            part.backward()
+            with profiling.span("train.backward"):
+                part.backward()
             loss = loss + part.detach()
-        grads = optim.tree_map(
-            lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
-            state.params)
-        updates, opt_state = optimizer.update(grads, state.opt_state,
-                                              state.params)
-        optim.apply_updates(state.params, updates)
-        for p in optim.tree_leaves(state.params):
-            p.grad = None
+        with profiling.span("train.optimizer"):
+            grads = optim.tree_map(
+                lambda p: torch.zeros_like(p) if p.grad is None else p.grad,
+                state.params)
+            updates, opt_state = optimizer.update(grads, state.opt_state,
+                                                  state.params)
+            optim.apply_updates(state.params, updates)
+            for p in optim.tree_leaves(state.params):
+                p.grad = None
         return TrainState(state.params, opt_state, state.step + 1), loss
 
     if steps_per_call <= 1:

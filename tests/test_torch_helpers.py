@@ -26,7 +26,6 @@ from lpformer_tpu.ops import search as jsearch
 from lpformer_tpu.ops import segment as jseg
 from lpformer_tpu.utils import checkpoint as jckpt
 from lpformer_tpu.utils import interop as jinterop
-from lpformer_tpu.utils import profiling as jprof
 from lpformer_tpu_torch.data import synthetic as tsyn
 from lpformer_tpu_torch.graph import ppr as tppr
 from lpformer_tpu_torch.models import link_transformer as tlt
@@ -35,7 +34,7 @@ from lpformer_tpu_torch.ops import search as tsearch
 from lpformer_tpu_torch.ops import segment as tseg
 from lpformer_tpu_torch.train import optim as toptim
 from lpformer_tpu_torch.utils import checkpoint as tckpt
-from lpformer_tpu_torch.utils import debug, measure, profiling
+from lpformer_tpu_torch.utils import debug, profiling
 from lpformer_tpu_torch.utils import interop as tinterop
 from lpformer_tpu_torch.utils.params import from_jax_params
 
@@ -232,27 +231,17 @@ def test_debug_checks(monkeypatch, capsys):
 
 def test_profiling_on_cpu(tmp_path):
     with profiling.trace(str(tmp_path / "tr")) as prof:
-        (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
+        with profiling.span("outer"):
+            with profiling.span("inner"):
+                (torch.ones(64, 64) @ torch.ones(64, 64)).sum()
     with open(tmp_path / "tr" / "trace.json") as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
     assert any("mm" in e.key for e in prof.key_averages())
-    timer = profiling.StepTimer(alpha=0.5)
-    assert not timer.cuda
-    for _ in range(2):
-        timer.tick("step")
-        assert timer.tock("step") >= 0.0
-    assert "step:" in timer.report() and timer.ema["step"] >= 0.0
-    # the same analytic counts as the JAX package, on the H100's peaks
-    for name, args in [("spmm_roofline", (1000, 64, 1e-3)),
-                       ("attention_roofline", (64, 32, 16, 2, 1e-3)),
-                       ("context_roofline", (64, 96, 256, 1e-3)),
-                       ("train_step_roofline", (64, 1000, 100, 16, 32, 2,
-                                                1e-2))]:
-        got, want = getattr(profiling, name)(*args), getattr(jprof, name)(
-            *args)
-        assert (got.flops, got.bytes, got.seconds) == (
-            want.flops, want.bytes, want.seconds)
-        assert got.peak_flops == measure.F32_FLOPS
-        assert got.peak_bw == measure.HBM_BYTES_PER_S
-        assert got.bound in ("compute", "memory")
-        assert profiling.roofline_report(got, name).startswith(f"[{name}]")
+    # the spans are in the exported trace, inner within outer
+    span = {e["name"]: e for e in events if e.get("name") in ("outer",
+                                                              "inner")}
+    assert set(span) == {"outer", "inner"}
+    o, i = span["outer"], span["inner"]
+    assert o["ts"] <= i["ts"] and i["ts"] + i["dur"] <= o["ts"] + o["dur"]
+    assert all(callable(getattr(profiling, n)) for n in (
+        "span", "count", "snapshot", "reset", "active", "trace"))
