@@ -7,7 +7,8 @@ With no arguments phase 12 reads the collab npz at REHEARSAL_SCALE;
 ``--collab-scale 1.0`` reads it at ogbl-collab's full size, and
 ``--deterministic-ab`` adds phase 12's A/B of torch's deterministic
 algorithms. ``--ppa-only`` runs the build and phase 16 alone, and prints
-no ok line.
+no ok line. ``python -m lpformer_tpu_torch.profile_kernels --key-rows``
+runs phase 17's report alone.
 
 Phases, each printing its own lines:
   1. device: requires CUDA; prints the card's name and power limit;
@@ -37,6 +38,15 @@ Phases, each printing its own lines:
      and, on the collab-like dataset, the fused lookup at each of its
      context-extraction shapes, bit for bit, with its traced device time,
      beside the searchsorted route;
+ 17. keys by id: rows 1, 2, 4 and 5 fed their keys as a node table and
+     the context ids (``KeyRows``, the model's fused route; dead slots on
+     the pad id N, past the table) against the same wrappers fed the
+     table ``gather_rows_valid`` gathers, at the main shape (bf16, f32)
+     and at the citation2-like [32768, 448, 64] f32: m, l and dkeys bit
+     for bit, out and the summed grads within their f32 atomics'
+     reordering, one launch a call, no host synchronisation, and each
+     wrapper's time both ways beside the gather's
+     (``profile_kernels.key_rows_report``);
 then, for each table layout of the collab-like preset (presets.py: the
 combined table of budget 128, then the classic per-class table of budgets
 64 / 128 / 128), and for the ddi-like preset (dim 256, combined table):
@@ -429,9 +439,10 @@ def tables():
             bwd=pam.fused_pe_link_attention_mixed_bwd,
             bwd_plain=pam.fused_pe_link_attention_mixed_bwd_plain,
             model_op="fused_pe_link_attention_mixed",
-            plain_op=lambda *a: pam.MixedOp.apply(
+            plain_op=lambda keys, *a: pam.MixedOp.apply(
                 pam.fused_pe_link_attention_mixed_plain,
-                pam.fused_pe_link_attention_mixed_bwd_plain, *a),
+                pam.fused_pe_link_attention_mixed_bwd_plain,
+                *pam.key_parts(keys), *a),
             inputs=measure.kernel_inputs, bound=measure.kernel_bound_ms,
             bwd_bound=measure.bwd_bound_ms,
             wide=[("ddi-like", dict(o=256, dh=256)),
@@ -452,10 +463,10 @@ def tables():
             bwd=pa.fused_pe_link_attention_bwd,
             bwd_plain=pa.fused_pe_link_attention_bwd_plain,
             model_op="fused_pe_link_attention",
-            plain_op=lambda *a, class_widths: pa.BlockedOp.apply(
+            plain_op=lambda keys, *a, class_widths: pa.BlockedOp.apply(
                 pa.fused_pe_link_attention_plain,
                 pa.fused_pe_link_attention_bwd_plain, tuple(class_widths),
-                *a),
+                *pam.key_parts(keys), *a),
             inputs=measure.classic_kernel_inputs,
             bound=measure.classic_bound_ms,
             bwd_bound=measure.classic_bwd_bound_ms,
@@ -640,6 +651,15 @@ def phase_kernel_bwd(dev, layout, t):
             entry = _entry(t["bwd_entry"], *r)
         del a
     return entry
+
+
+def phase_key_rows(dev, card):
+    """Phase 17: the PE+attention wrappers fed their keys by id against
+    the gathered table (raises on a disagreement)."""
+    from lpformer_tpu_torch.profile_kernels import key_rows_report
+
+    key_rows_report(card, dev, log=log)
+    torch.cuda.empty_cache()
 
 
 def phase_scatter(dev, card):
@@ -1063,7 +1083,7 @@ def phase_main(dev, card, ds, layout, t, cfg=None, batch=None):
             f", max {per_link.max():.0f} of {real['valid'].shape[1]}")
         log(f"batch of {batch} ({layout}): score {total_ms:.3f} ms = context "
             f"{ctx_ms:.3f} + kernel {kern_ms:.3f} (bound {bound:.5f}) + "
-            f"rest {total_ms - ctx_ms - kern_ms:.3f} (key gather, MLPs); "
+            f"rest {total_ms - ctx_ms - kern_ms:.3f} (key projection, MLPs); "
             f"propagate {prop_ms:.3f} ms; {batch / total_ms * 1e3:.0f} "
             f"links/s scored  [{card}]")
     return launches
@@ -3527,6 +3547,8 @@ def _run(opts) -> int:
         stamp(f"{layout} backward kernel checks")
         if layout == "combined":
             entries.append((phase_scatter(dev, card), layout))
+    phase_key_rows(dev, card)
+    stamp("keys by id (phase 17)")
     entries += [(e, "attention A/B") for e in phase_link_attention(dev)]
     stamp("per-link attention kernel checks")
     torch.cuda.empty_cache()

@@ -23,30 +23,33 @@
 extern "C" {
 
 // Launch both kernels on `stream`; returns cudaGetLastError() after the
-// launches (0 = ok). slots [B*C] int32: the valid slots' ids b*C + c in
-// (class, link, column) order; offsets [K+1] int32: class k's slots at
-// [offsets[k], offsets[k+1]), on the device. n0, n1, n2: the class
-// blocks' widths (0 past K), summing to C. ts: slots of a tile, 64 or
-// 32. bf16 != 0: keys, w2f and dkeys
-// are bfloat16, else float32; everything else float32. dkeys [B, C, O],
-// dq [B, O], dw1cat [3K, dh], dg, db [K, dh], dcb [K, O], datt [O] and dw2
-// [K, dh, O] are summed into and must be zeroed by the caller.
+// launches (0 = ok). keys: the key table, [N', O] read at row ids[b*C +
+// c] for slot (b, c) when ids [B, C] int32 is given (dead slots' ids are
+// never read), else [B, C, O] (ids null); dkeys is [B, C, O] either way.
+// slots [B*C] int32: the valid slots' ids b*C + c in (class, link,
+// column) order; offsets [K+1] int32: class k's slots at [offsets[k],
+// offsets[k+1]), on the device. n0, n1, n2: the class blocks' widths (0
+// past K), summing to C. ts: slots of a tile, 64 or 32. bf16 != 0: keys,
+// w2f and dkeys are bfloat16, else float32; everything else float32.
+// dkeys, dq [B, O], dw1cat [3K, dh], dg, db [K, dh], dcb [K, O], datt [O]
+// and dw2 [K, dh, O] are summed into and must be zeroed by the caller.
 int pe_attention_bwd(
-    const void* keys, const void* ps, const void* pt, const void* slots,
-    const void* offsets, const void* q, const void* g_out, const void* m,
-    const void* l, const void* delta, const void* w1, const void* b1,
-    const void* g, const void* bln, const void* w2f, const void* cbias,
-    const void* att, void* dkeys, void* dq, void* dw1cat, void* dg, void* db,
-    void* dcb, void* datt, void* dw2, int B, int C, int O, int dh, int K,
+    const void* keys, const void* ids, const void* ps, const void* pt,
+    const void* slots, const void* offsets, const void* q,
+    const void* g_out, const void* m, const void* l, const void* delta,
+    const void* w1, const void* b1, const void* g, const void* bln,
+    const void* w2f, const void* cbias, const void* att, void* dkeys,
+    void* dq, void* dw1cat, void* dg, void* db, void* dcb, void* datt,
+    void* dw2, int B, int C, int O, int dh, int K,
     int n0, int n1, int n2, int ts, int bf16, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int widths[3] = {n0, n1, n2};
   if (!class_widths_ok(K, C, widths)) return (int)cudaErrorInvalidValue;
   auto launch = bf16 ? &launch_tiles_bwd<__nv_bfloat16>
                      : &launch_tiles_bwd<float>;
-  return launch(keys, ps, pt, slots, offsets, q, g_out, m, l, delta, w1, b1,
-                g, bln, w2f, cbias, att, dkeys, dq, dw1cat, dg, db, dcb, datt,
-                dw2, B, C, O, dh, K, ts, s);
+  return launch(keys, ids, ps, pt, slots, offsets, q, g_out, m, l, delta,
+                w1, b1, g, bln, w2f, cbias, att, dkeys, dq, dw1cat, dg, db,
+                dcb, datt, dw2, B, C, O, dh, K, ts, s);
 }
 
 const char* pe_attention_bwd_error_string(int err) {

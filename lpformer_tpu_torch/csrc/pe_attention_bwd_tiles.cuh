@@ -137,7 +137,8 @@ __device__ void product_dh(const T* D, int ds, const T* W, int ws, float* X,
 template <typename T, int TS>
 __global__ void __launch_bounds__(32 * tile_warps(TS))
 pe_tiles_bwd_kernel(
-    const T* __restrict__ keys, const float* __restrict__ ps,
+    const T* __restrict__ keys, const int32_t* __restrict__ ids,
+    const float* __restrict__ ps,
     const float* __restrict__ pt, const int32_t* __restrict__ slots,
     const int32_t* __restrict__ offsets, const float* __restrict__ q,
     const float* __restrict__ g_out, const float* __restrict__ m_in,
@@ -176,10 +177,11 @@ pe_tiles_bwd_kernel(
     int k, s0, n;
     tiles.at(t, TS, k, s0, n);
     const T* wk = w2f + (size_t)k * dh * O;
-    tile_xj<T, TS>(keys, ps, pt, slots, w1, b1, g, bln, w2f, cbias, L, p, k,
-                   s0, n, C, w_class);
+    tile_xj<T, TS>(keys, ids, ps, pt, slots, w1, b1, g, bln, w2f, cbias, L,
+                   p, k, s0, n, C, w_class);
 
-    // (c') each row's logit, alpha and dlogit
+    // (c') each row's logit, alpha and dlogit (kDlog's field held the
+    // rows' key rows, kKeyRow, until tile_xj's last barrier)
     for (int r = warp; r < n; r += tile_warps(TS)) {
       const int b = rlink[r];
       const float* x = xd + (size_t)r * xs;
@@ -521,7 +523,8 @@ pe_tiles_dw2_kernel(
 // Launch the main kernel with tiles of TS slots, then the dw2 kernel, on
 // `stream`; returns cudaGetLastError() after the launches (0 = ok).
 template <typename T, int TS>
-int launch_tiles(const void* keys, const void* ps, const void* pt,
+int launch_tiles(const void* keys, const void* ids, const void* ps,
+                 const void* pt,
                  const void* slots, const void* offsets, const void* q,
                  const void* g_out, const void* m, const void* l,
                  const void* delta, const void* w1, const void* b1,
@@ -536,9 +539,9 @@ int launch_tiles(const void* keys, const void* ps, const void* pt,
                                 bwd_sums(K, O, dh), (long long)B * C, &t);
   if (err != cudaSuccess) return (int)err;
   kern<<<t.grid, 32 * tile_warps(TS), t.smem, stream>>>(
-      (const T*)keys, (const float*)ps, (const float*)pt,
-      (const int32_t*)slots, (const int32_t*)offsets, (const float*)q,
-      (const float*)g_out, (const float*)m, (const float*)l,
+      (const T*)keys, (const int32_t*)ids, (const float*)ps,
+      (const float*)pt, (const int32_t*)slots, (const int32_t*)offsets,
+      (const float*)q, (const float*)g_out, (const float*)m, (const float*)l,
       (const float*)delta, (const float*)w1, (const float*)b1,
       (const float*)g, (const float*)bln, (const T*)w2f,
       (const float*)cbias, (const float*)att, (T*)dkeys, (float*)dq,
@@ -573,7 +576,8 @@ int launch_tiles(const void* keys, const void* ps, const void* pt,
 // Tiles of `ts` slots, 64 or 32 (ops/pe_attention_mixed.py:tile_slots: 64
 // up to O, dh of 128, 32 past it, where shared memory is short).
 template <typename T>
-int launch_tiles_bwd(const void* keys, const void* ps, const void* pt,
+int launch_tiles_bwd(const void* keys, const void* ids, const void* ps,
+                     const void* pt,
                      const void* slots, const void* offsets, const void* q,
                      const void* g_out, const void* m, const void* l,
                      const void* delta, const void* w1, const void* b1,
@@ -586,8 +590,8 @@ int launch_tiles_bwd(const void* keys, const void* ps, const void* pt,
     return (int)cudaErrorInvalidValue;
   if (B == 0 || C == 0) return 0;
   auto launch = ts == 64 ? &launch_tiles<T, 64> : &launch_tiles<T, 32>;
-  return launch(keys, ps, pt, slots, offsets, q, g_out, m, l, delta, w1, b1,
-                g, bln, w2f, cbias, att, dkeys, dq, dw1cat, dg, db, dcb,
-                datt, dw2, B, C, O, dh, K, stream);
+  return launch(keys, ids, ps, pt, slots, offsets, q, g_out, m, l, delta,
+                w1, b1, g, bln, w2f, cbias, att, dkeys, dq, dw1cat, dg, db,
+                dcb, datt, dw2, B, C, O, dh, K, stream);
 }
 }  // namespace

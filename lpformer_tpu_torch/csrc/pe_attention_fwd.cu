@@ -24,14 +24,16 @@
 extern "C" {
 
 // Launch the three kernels on `stream`; returns cudaGetLastError() after
-// the launches (0 = ok). slots [B*C] int32: the valid slots' ids b*C + c
-// in (class, link, column) order; offsets [K+1] int32: class k's slots at
-// [offsets[k], offsets[k+1]), on the device; valid [B, C] uint8/bool; s
-// [B*C] f32 scratch. n0, n1, n2: the class blocks' widths (0 past K),
-// summing to C. ts: slots of a tile, 64 or 32. bf16 != 0: keys and w2f
-// are bfloat16, else float32; everything else float32.
-int pe_attention_fwd(const void* keys, const void* ps, const void* pt,
-                     const void* valid, const void* slots,
+// the launches (0 = ok). keys: the key table, [N', O] read at row ids[b*C
+// + c] for slot (b, c) when ids [B, C] int32 is given (dead slots' ids are
+// never read), else [B, C, O] (ids null). slots [B*C] int32: the valid
+// slots' ids b*C + c in (class, link, column) order; offsets [K+1] int32:
+// class k's slots at [offsets[k], offsets[k+1]), on the device; valid
+// [B, C] uint8/bool; s [B*C] f32 scratch. n0, n1, n2: the class blocks'
+// widths (0 past K), summing to C. ts: slots of a tile, 64 or 32. bf16 !=
+// 0: keys and w2f are bfloat16, else float32; everything else float32.
+int pe_attention_fwd(const void* keys, const void* ids, const void* ps,
+                     const void* pt, const void* valid, const void* slots,
                      const void* offsets, const void* q, const void* w1,
                      const void* b1, const void* g, const void* bln,
                      const void* w2f, const void* cbias, const void* att,
@@ -42,8 +44,8 @@ int pe_attention_fwd(const void* keys, const void* ps, const void* pt,
   if (!class_widths_ok(K, C, widths)) return (int)cudaErrorInvalidValue;
   auto launch = bf16 ? &launch_tiles_fwd<__nv_bfloat16>
                      : &launch_tiles_fwd<float>;
-  return launch(keys, ps, pt, valid, slots, offsets, q, w1, b1, g, bln, w2f,
-                cbias, att, bias, s, out, m, l, B, C, O, dh, K, ts,
+  return launch(keys, ids, ps, pt, valid, slots, offsets, q, w1, b1, g, bln,
+                w2f, cbias, att, bias, s, out, m, l, B, C, O, dh, K, ts,
                 (cudaStream_t)stream);
 }
 

@@ -60,7 +60,8 @@ constexpr int kStatsWarps = 8;          // links a statistics block takes
 template <typename T, int TS, bool kSum>
 __global__ void __launch_bounds__(32 * tile_warps(TS))
 pe_tiles_fwd_kernel(
-    const T* __restrict__ keys, const float* __restrict__ ps,
+    const T* __restrict__ keys, const int32_t* __restrict__ ids,
+    const float* __restrict__ ps,
     const float* __restrict__ pt, const int32_t* __restrict__ slots,
     const int32_t* __restrict__ offsets, const float* __restrict__ q,
     const float* __restrict__ w1, const float* __restrict__ b1,
@@ -80,8 +81,8 @@ pe_tiles_fwd_kernel(
   for (int t = blockIdx.x; t < tiles.total; t += gridDim.x) {
     int k, s0, n;
     tiles.at(t, TS, k, s0, n);
-    tile_xj<T, TS>(keys, ps, pt, slots, w1, b1, g, bln, w2f, cbias, L, p, k,
-                   s0, n, C, w_class);
+    tile_xj<T, TS>(keys, ids, ps, pt, slots, w1, b1, g, bln, w2f, cbias, L,
+                   p, k, s0, n, C, w_class);
 
     for (int r = warp; r < n; r += tile_warps(TS)) {
       const int b = p.rlink[r];
@@ -154,7 +155,8 @@ pe_fwd_stats_kernel(const uint8_t* __restrict__ valid,
 // The three launches with tiles of TS slots on `stream`; returns
 // cudaGetLastError() after them (0 = ok).
 template <typename T, int TS>
-int launch_fwd(const void* keys, const void* ps, const void* pt,
+int launch_fwd(const void* keys, const void* ids, const void* ps,
+               const void* pt,
                const void* valid, const void* slots, const void* offsets,
                const void* q, const void* w1, const void* b1, const void* g,
                const void* bln, const void* w2f, const void* cbias,
@@ -170,9 +172,9 @@ int launch_fwd(const void* keys, const void* ps, const void* pt,
         tile_launch(kern, TS, O, dh, K, (int)sizeof(T), 0, slots_n, &t);
     if (err != cudaSuccess) return (int)err;
     kern<<<t.grid, 32 * tile_warps(TS), t.smem, stream>>>(
-        (const T*)keys, (const float*)ps, (const float*)pt,
-        (const int32_t*)slots, (const int32_t*)offsets, (const float*)q,
-        (const float*)w1, (const float*)b1, (const float*)g,
+        (const T*)keys, (const int32_t*)ids, (const float*)ps,
+        (const float*)pt, (const int32_t*)slots, (const int32_t*)offsets,
+        (const float*)q, (const float*)w1, (const float*)b1, (const float*)g,
         (const float*)bln, (const T*)w2f, (const float*)cbias,
         (const float*)att, (const float*)m, (const float*)l, (float*)s,
         (float*)out, C, O, dh, K, t.L.dc);
@@ -190,9 +192,10 @@ int launch_fwd(const void* keys, const void* ps, const void* pt,
 
 // Tiles of `ts` slots, 64 or 32 (ops/pe_attention_mixed.py:tile_slots, as
 // the backward). T = keys' and w2f's type; everything else is float32,
-// valid uint8, slots and offsets int32.
+// valid uint8, ids (null, or [B C] key rows), slots and offsets int32.
 template <typename T>
-int launch_tiles_fwd(const void* keys, const void* ps, const void* pt,
+int launch_tiles_fwd(const void* keys, const void* ids, const void* ps,
+                     const void* pt,
                      const void* valid, const void* slots,
                      const void* offsets, const void* q, const void* w1,
                      const void* b1, const void* g, const void* bln,
@@ -204,8 +207,8 @@ int launch_tiles_fwd(const void* keys, const void* ps, const void* pt,
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   auto launch = ts == 64 ? &launch_fwd<T, 64> : &launch_fwd<T, 32>;
-  return launch(keys, ps, pt, valid, slots, offsets, q, w1, b1, g, bln, w2f,
-                cbias, att, bias, s, out, m, l, B, C, O, dh, K, stream);
+  return launch(keys, ids, ps, pt, valid, slots, offsets, q, w1, b1, g, bln,
+                w2f, cbias, att, bias, s, out, m, l, B, C, O, dh, K, stream);
 }
 
 }  // namespace

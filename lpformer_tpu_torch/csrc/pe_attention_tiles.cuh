@@ -8,7 +8,11 @@
 // table's class tags or the classic table's column blocks), in tiles of TS
 // slots of one class: a tile's class is its place in that list. Both run
 // one prologue per tile (tile_xj, then row_logit per row):
-//   * every thread reads a row's slot id and PPR values at once;
+//   * every thread reads a row's slot id, key row and PPR values at once:
+//     the key row is ids[slot] of the key table (a node table the wrapper
+//     passes with the context ids, so that no [B, C, O] copy of its rows is
+//     ever written), or the slot's own row when ids is null (a dense
+//     [B, C, O] key tensor, the same read with the identity map);
 //   * (a) a warp per slot recomputes both directions' LayerNorm and keeps
 //     [Ha | Hb], TS x 2 dh in W2f's type, in shared memory;
 //   * (b) X = [Ha | Hb] [W2f_k ; W2f_k] on the tensor cores (mma.sync
@@ -17,7 +21,7 @@
 //     or for f32 inputs (Ha + Hb) W2f_k as FMA loops on the CUDA cores
 //     (not TF32; h is not rounded there, so only the order of the f32
 //     additions differs);
-//   * (c) every thread adds keys (16-byte reads) and cbias: xj;
+//   * (c) every thread adds the key rows (16-byte reads) and cbias: xj;
 //   * a warp per slot sums its logit s = sum_o att[o] lrelu(xj[o] q[b,o])
 //     lane by lane (columns lane + 32 j) and then across the warp.
 // So a slot's xj and s come out bit for bit the same in both directions:
@@ -38,6 +42,19 @@ namespace {
 // per-row fields of a tile, [kRowF][TS] floats
 enum RowField { kA0, kA1, kMuA, kInvA, kMuB, kInvB, kAlpha, kDlog, kM1A,
                 kM2A, kM1B, kM2B, kRowF };
+// tile_xj fills the fields [0, kPrologueF) (PPR values, LayerNorm
+// statistics); the others are the directions' own, written after it
+// returns.
+constexpr int kPrologueF = kInvB + 1;
+// The rows' key rows share kDlog's field, as int bits: tile_xj writes them
+// with the slot ids and reads them in (c), and the backward writes dlogit
+// there only after the prologue's last barrier. A field of their own would
+// cost TS ints of shared memory: the bf16 backward at O = dh = 128, K = 3
+// takes 115,712 bytes a block, two blocks with their 1 KB reserve each
+// exactly the SM's 233,472, so 256 bytes more leave one block an SM.
+constexpr int kKeyRow = kDlog;
+static_assert(kKeyRow >= kPrologueF && kKeyRow < kRowF,
+              "the key rows' field must be one tile_xj does not fill");
 
 __host__ __device__ constexpr int pad16(int n) { return (n + 15) & ~15; }
 __host__ __device__ constexpr size_t align16(size_t n) {
@@ -403,11 +420,14 @@ __device__ void product_x(const T* H, int hs, int dp, const T* W, int ws,
 
 // The tile prologue up to xj: the n rows of tile (k, s0) read, (a), (b)
 // and (c) above; on return (after a barrier) X [TS, xs] holds each row's
-// xj and rf each row's PPR values and LayerNorm statistics. w_class is
-// the class whose W2f sits in wsm (-1 before a block's first tile).
+// xj and rf each row's PPR values and LayerNorm statistics. The key of
+// slot s is row ids[s] of keys [N', O], or row s of keys [B C, O] when ids
+// is null. w_class is the class whose W2f sits in wsm (-1 before a
+// block's first tile).
 template <typename T, int TS>
 __device__ __forceinline__ void tile_xj(
-    const T* __restrict__ keys, const float* __restrict__ ps,
+    const T* __restrict__ keys, const int32_t* __restrict__ ids,
+    const float* __restrict__ ps,
     const float* __restrict__ pt, const int32_t* __restrict__ slots,
     const float* __restrict__ w1, const float* __restrict__ b1,
     const float* __restrict__ g, const float* __restrict__ bln,
@@ -422,11 +442,12 @@ __device__ __forceinline__ void tile_xj(
   const T* wk = w2f + (size_t)k * dh * O;
   float* rf = p.rf;
 
-  // the rows' slots, links and PPR values, every row at once
+  // the rows' slots, links, key rows and PPR values, every row at once
   for (int r = threadIdx.x; r < n; r += blockDim.x) {
     const int slot = slots[s0 + r];
     p.rslot[r] = slot;
     p.rlink[r] = slot / C;
+    rf[kKeyRow * TS + r] = __int_as_float(ids ? ids[slot] : slot);
     rf[kA0 * TS + r] = ps[slot];
     rf[kA1 * TS + r] = pt[slot];
   }
@@ -486,7 +507,8 @@ __device__ __forceinline__ void tile_xj(
     const int per = vec ? O / vw : O;
     for (int i = threadIdx.x; i < n * per; i += blockDim.x) {
       const int r = i / per, c = (i % per) * (vec ? vw : 1);
-      const T* kr = keys + (size_t)p.rslot[r] * O + c;
+      const T* kr =
+          keys + (size_t)__float_as_int(rf[kKeyRow * TS + r]) * O + c;
       float* x = p.xd + (size_t)r * xs + c;
       const float* cb = cbias + k * O + c;
       if (vec) {

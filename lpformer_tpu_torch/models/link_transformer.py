@@ -12,8 +12,11 @@ It takes one of two routes, as the JAX package's does:
   * the fused op, ONE op over the context table that computes the PE
     MLPs, the key projection and the masked attention: a hand-written
     CUDA kernel on a CUDA tensor and its plain torch version on a CPU
-    tensor (the counterparts of the JAX package's Pallas kernels). The
-    classic class-blocked table (``budget_combined=None``, the default)
+    tensor (the counterparts of the JAX package's Pallas kernels). It
+    takes the node half of the keys by id (``KeyRows``: X_node @ W_r[:d]
+    and the context ids), and its kernels read each valid slot's row in
+    place, so no [B, C, O] key table is written. The classic class-blocked
+    table (``budget_combined=None``, the default)
     runs ``ops/pe_attention.py`` with the blocks' widths; the combined
     class-tagged table ``ops/pe_attention_mixed.py`` with a per-slot
     encoder index;
@@ -54,7 +57,7 @@ from lpformer_tpu_torch.ops.context import ContextTables, extract_context
 from lpformer_tpu_torch.ops.gather import gather_rows, gather_rows_valid
 from lpformer_tpu_torch.ops.pe_attention import fused_pe_link_attention
 from lpformer_tpu_torch.ops.pe_attention_mixed import (
-    fused_pe_link_attention_mixed,
+    KeyRows, fused_pe_link_attention_mixed,
 )
 from lpformer_tpu_torch.ops.segment import masked_softmax
 from lpformer_tpu_torch.utils import profiling
@@ -147,10 +150,11 @@ def _encoder_codes(cfg: LPFormerConfig):
 
 def _att_layer_apply_fused(
     lp: Dict, params: Dict, cfg: LPFormerConfig, edge_x: torch.Tensor,
-    xj_node: torch.Tensor, ctx: ContextTables,
+    xj_node: KeyRows, ctx: ContextTables,
     gen: Optional[torch.Generator] = None, train: bool = False,
 ) -> torch.Tensor:
-    """One attention layer through the fused PE + attention op. The PE
+    """One attention layer through the fused PE + attention op, the node
+    half of its keys by id (``_node_key_rows``). The PE
     MLPs' last linear is folded into W_r's PE half here (w2f = W2 @
     W_r[d:], cbias = 2 b2 @ W_r[d:] + b_r), in plain torch, so the op's
     stacked-weight grads flow back to the true parameter leaves and its PE
@@ -256,22 +260,38 @@ def _pos_encodings(
     return torch.cat(blocks, dim=1)
 
 
+def _project_nodes(lp: Dict, cfg: LPFormerConfig,
+                   X_node: torch.Tensor) -> torch.Tensor:
+    """X_node @ W_r[:dim] [N, H*O], once in [N] space (N << B*C), in the
+    key dtype (bf16 under matmul_dtype)."""
+    d = X_node.shape[-1]
+    kd = cfg.mm_dtype or X_node.dtype
+    return nn.matmul(X_node, lp["lin_r"]["w"][:d], cfg.mm_dtype).to(kd)
+
+
+def _node_key_rows(lp: Dict, cfg: LPFormerConfig, X_node: torch.Tensor,
+                   ctx: ContextTables) -> KeyRows:
+    """The fused route's node half of the keys, by id: the projected node
+    table (``_project_nodes``) and the context ids, which the fused op's
+    kernels read row by row. No gather and no pad row: the invalid slots'
+    pad id N is never read (the kernels walk the valid slots alone, and
+    the plain versions give those slots zero rows)."""
+    with profiling.span("model.keys"):
+        return KeyRows(_project_nodes(lp, cfg, X_node), ctx.ids)
+
+
 def _node_keys(lp: Dict, cfg: LPFormerConfig, X_node: torch.Tensor,
                ctx: ContextTables) -> torch.Tensor:
-    """The node half of the keys, [B, C, H*O]: X_node @ W_r[:dim] once in
-    [N] space (N << B*C), in the key dtype (bf16 under matmul_dtype),
-    then gathered by the context ids. Row N is a zero pad row: invalid
-    slots carry the pad id N, so they gather it (the JAX package spreads
-    them over real rows instead, a TPU gather-engine workaround); either
-    way no route reads an invalid slot's key (alpha is exactly 0 there)."""
+    """The dense route's node half of the keys, [B, C, H*O]: the projected
+    node table (``_project_nodes``) gathered by the context ids. Row N is
+    a zero pad row: invalid slots carry the pad id N, so they gather it
+    (the JAX package spreads them over real rows instead, a TPU
+    gather-engine workaround); either way no route reads an invalid slot's
+    key (alpha is exactly 0 there)."""
     with profiling.span("model.keys"):
-        d = X_node.shape[-1]
-        W = lp["lin_r"]["w"]
-        kd = cfg.mm_dtype or X_node.dtype
-        X_proj = nn.matmul(X_node, W[:d], cfg.mm_dtype).to(kd)
-        X_proj = torch.cat(
-            [X_proj, torch.zeros((1, W.shape[1]), dtype=kd,
-                                 device=X_proj.device)], dim=0)
+        X_proj = _project_nodes(lp, cfg, X_node)
+        X_proj = torch.cat([X_proj, X_proj.new_zeros((1, X_proj.shape[1]))],
+                           dim=0)
         return gather_rows_valid(X_proj, ctx.ids, ctx.valid)
 
 
@@ -364,7 +384,7 @@ def calc_pairwise(
     (reference: link_transformer.py:132-178): (pairwise [B, dim], alpha),
     alpha the last attention layer's weights [B, C, H] with
     ``return_weights`` and None otherwise. The route is the module
-    docstring's rule. The attention layers, key gathers included, are
+    docstring's rule. The attention layers, their keys included, are
     rematerialised in the backward when ``remat_pairwise_on`` says so,
     and never under ``return_weights``."""
     feats = torch.cat([gather_rows(X_node, src), gather_rows(X_node, tgt)],
@@ -379,8 +399,8 @@ def calc_pairwise(
                 # the PE half is computed inside the fused op from the
                 # [B, C] PPR tables
                 feats = _att_layer_apply_fused(
-                    lp, params, cfg, feats, _node_keys(lp, cfg, X_node, ctx),
-                    ctx, gen, train)
+                    lp, params, cfg, feats,
+                    _node_key_rows(lp, cfg, X_node, ctx), ctx, gen, train)
             else:
                 feats, alpha = _att_layer_apply(
                     lp, cfg, feats,

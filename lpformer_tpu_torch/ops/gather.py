@@ -9,8 +9,11 @@ dtype. The routing is the JAX package's, by size: from
 Pallas scatter the JAX package takes on a TPU); below it, an f32
 ``index_add_``, the counterpart of the JAX package's ``segment_sum``
 branch (XLA there, not Pallas). ``gather_rows_valid`` passes its validity
-mask to the scatter, which drops the dead rows: their cotangents are
-exactly zero by construction.
+mask to the sum, which drops the dead rows on either branch: their
+cotangents are exactly zero by construction, and their ids need not lie
+in range (the PE + attention ops, which read the key rows by id, sum
+their table's gradient here too, over the context ids' pad id N with no
+pad row).
 """
 from __future__ import annotations
 
@@ -25,15 +28,22 @@ _SCATTER_MIN_ROWS = 65536
 
 
 def _rows_sum(ids, ct, n, valid):
-    """sum of ct rows into their ids, f32 [n, D]."""
+    """sum of ct rows into their ids, f32 [n, D]; with ``valid`` (ids'
+    shape) the dead rows are dropped, whatever their ids."""
     d = ct.shape[-1]
     if ids.numel() >= _SCATTER_MIN_ROWS:
         return scatter.scatter_rows_add(
             ids.to(torch.int32).contiguous(), ct.contiguous(), n,
             live=None if valid is None else valid.contiguous())
+    rows, vals = ids.reshape(-1).long(), ct.reshape(-1, d).float()
+    if valid is not None:
+        # dead rows add an exact zero to row 0 (no host sync, as a
+        # boolean selection would take on the card)
+        live = valid.reshape(-1)
+        rows = torch.where(live, rows, 0)
+        vals = torch.where(live[:, None], vals, 0.0)
     out = torch.zeros((n, d), dtype=torch.float32, device=ct.device)
-    return out.index_add_(0, ids.reshape(-1).long(),
-                          ct.reshape(-1, d).float())
+    return out.index_add_(0, rows, vals)
 
 
 class _GatherRows(torch.autograd.Function):

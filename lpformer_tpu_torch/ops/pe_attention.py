@@ -20,6 +20,10 @@ otherwise). This op takes ``class_widths`` instead, any widths, keeps the
 mixed op). No per-slot class tensor is built: the kernels' compaction
 keys each slot by its column's block.
 
+The keys come dense or by id (``pe_attention_mixed.KeyRows``: each
+valid slot's row read from a node table in place), as the mixed op takes
+them.
+
 ``fused_pe_link_attention`` is a ``torch.autograd.Function``. On CUDA
 tensors both directions launch hand-written CUDA kernels (built with nvcc
 for sm_90a at first use, loaded with ctypes), the forward
@@ -53,8 +57,9 @@ import torch
 from lpformer_tpu_torch.ops._cuda import bind, build_cuda, check_tensors
 from lpformer_tpu_torch.ops.pe_attention_mixed import (
     BWD_HEADERS, FWD_HEADERS, attend, attend_backward, backward_cotangent,
-    compact_tagged_slots, launch_fwd, ln_affine, ln_backward,
-    split_layer1_grads, tile_slots,
+    compact_tagged_slots, dense_keys, join_keys, key_checks, key_parts,
+    key_ptrs, launch_fwd, ln_affine, ln_backward, split_layer1_grads,
+    table_grad, tile_slots,
 )
 
 _LIB = None
@@ -77,7 +82,7 @@ def build_bwd() -> Tuple[str, str]:
 def _load():
     global _LIB
     if _LIB is None:
-        _LIB = bind(build()[0], "pe_attention_fwd", 19, 10,
+        _LIB = bind(build()[0], "pe_attention_fwd", 20, 10,
                     "pe_attention_error_string")
     return _LIB
 
@@ -85,7 +90,7 @@ def _load():
 def _load_bwd():
     global _LIB_BWD
     if _LIB_BWD is None:
-        _LIB_BWD = bind(build_bwd()[0], "pe_attention_bwd", 25, 10,
+        _LIB_BWD = bind(build_bwd()[0], "pe_attention_bwd", 26, 10,
                         "pe_attention_bwd_error_string")
     return _LIB_BWD
 
@@ -149,6 +154,7 @@ def fused_pe_link_attention_plain(
     class: each direction's hidden activation is rounded to w2f's dtype
     and multiplied by its class's W2f separately. Returns (out [B, O],
     m [B], l [B])."""
+    keys = dense_keys(keys, valid)
     blocks = _pe_blocks(ps, pt, w1, b1, g, b, w2f, class_widths)
     xj = _keys_xj(keys, cbias, blocks, class_widths)             # [B, C, O]
     return attend(xj, valid, q, att, bias)
@@ -165,6 +171,7 @@ def fused_pe_link_attention_bwd_plain(
     everything else is f32. Returns (dkeys [B, C, O] keys' dtype, dq
     [B, O], dw1cat [3K, dh] rows (w1a_k | w1b_k | b1_k), dg [K, dh],
     db [K, dh], dw2 [K, dh, O] f32, dcb [K, O], datt [1, O])."""
+    keys = dense_keys(keys, valid)
     k_n, _, dh = w1.shape
     o = keys.shape[-1]
     blocks = _pe_blocks(ps, pt, w1, b1, g, b, w2f, class_widths)
@@ -204,7 +211,7 @@ def _check(keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, bias=None,
     per_link = {"g_out": (bsz, o), "m": (bsz,), "l": (bsz,),
                 "delta": (bsz,)}
     want = {
-        "keys": (keys, keys.dtype, (bsz, c, o)),
+        **key_checks(keys),
         "ps": (ps, torch.float32, (bsz, c)),
         "pt": (pt, torch.float32, (bsz, c)),
         "valid": (valid, torch.bool, (bsz, c)),
@@ -279,7 +286,7 @@ def fused_pe_link_attention_bwd(
     lib = _load_bwd()
     with torch.cuda.device(dev):
         err = lib.pe_attention_bwd(
-            keys.data_ptr(), ps.data_ptr(), pt.data_ptr(),
+            *key_ptrs(keys), ps.data_ptr(), pt.data_ptr(),
             slots.data_ptr(), offsets.data_ptr(),
             q.data_ptr(), g_out.data_ptr(), m.data_ptr(), l.data_ptr(),
             delta.data_ptr(), w1.data_ptr(), b1.data_ptr(), g.data_ptr(),
@@ -304,33 +311,39 @@ fused_pe_link_attention_bwd.launches = 0
 class BlockedOp(torch.autograd.Function):
     """The differentiable op over a (forward, backward) pair of
     implementations: ``fused_pe_link_attention`` passes the kernel
-    wrappers. Returns (out, m, l); m and l carry no gradient."""
+    wrappers, and the keys as ``key_parts`` splits them (table, ids).
+    Returns (out, m, l); m and l carry no gradient."""
 
     @staticmethod
-    def forward(ctx, fwd, bwd, class_widths, keys, ps, pt, valid, q, w1, b1,
-                g, b, w2f, cbias, att, bias):
-        args = (keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, bias)
-        out, m, l = fwd(*args, class_widths)
+    def forward(ctx, fwd, bwd, class_widths, table, ids, ps, pt, valid, q,
+                w1, b1, g, b, w2f, cbias, att, bias):
+        keys = join_keys(table, ids)
+        out, m, l = fwd(keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias,
+                        att, bias, class_widths)
         ctx.bwd, ctx.class_widths = bwd, class_widths
-        ctx.save_for_backward(*args, m, l, out)
+        ctx.save_for_backward(table, ids, ps, pt, valid, q, w1, b1, g, b, w2f,
+                              cbias, att, bias, m, l, out)
         ctx.mark_non_differentiable(m, l)
         return out, m, l
 
     @staticmethod
     def backward(ctx, g_out, _dm, _dl):
-        (keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, bias, m, l,
-         out) = ctx.saved_tensors
+        (table, ids, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, bias,
+         m, l, out) = ctx.saved_tensors
+        keys = join_keys(table, ids)
         g_out, delta = backward_cotangent(g_out, out, bias)
         dkeys, dq, dw1cat, dg, db, dw2, dcb, datt = ctx.bwd(
             keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, m, l,
             g_out, delta, ctx.class_widths)
         dw1, db1 = split_layer1_grads(dw1cat)
-        return (None, None, None, dkeys, None, None, None, dq, dw1, db1, dg,
-                db, dw2.to(w2f.dtype), dcb, datt, g_out.sum(0))
+        return (None, None, None, table_grad(dkeys, table, ids, valid), None,
+                None, None, None, dq, dw1, db1, dg, db, dw2.to(w2f.dtype),
+                dcb, datt, g_out.sum(0))
 
 
 def fused_pe_link_attention(
-    keys: torch.Tensor,    # [B, C, O] bf16/f32 gathered X_node @ W_r[:d] rows
+    keys,                  # [B, C, O] bf16/f32 X_node @ W_r[:d] rows:
+                           # KeyRows(table, ids), or a dense tensor
     ps: torch.Tensor,      # [B, C] f32 ppr(src, v)
     pt: torch.Tensor,      # [B, C] f32 ppr(tgt, v)
     valid: torch.Tensor,   # [B, C] bool
@@ -346,15 +359,16 @@ def fused_pe_link_attention(
     class_widths: Sequence[int],   # K column counts summing to C
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(out [B, O] f32, m [B], l [B]), differentiable in every float input
-    but ps and pt (whose grads the JAX package returns as zeros). CUDA
-    tensors launch the kernels (``.launches`` on this function counts the
-    forward's, on ``fused_pe_link_attention_bwd`` the backward's); CPU
-    tensors run the plain versions."""
+    but ps and pt (whose grads the JAX package returns as zeros): a
+    ``KeyRows``' table among them, not its ids. CUDA tensors launch the
+    kernels (``.launches`` on this function counts the forward's, on
+    ``fused_pe_link_attention_bwd`` the backward's); CPU tensors run the
+    plain versions."""
     class_widths = tuple(int(w) for w in class_widths)
     _check_widths(class_widths, w1.shape[0], keys.shape[1])
     return BlockedOp.apply(_fwd, fused_pe_link_attention_bwd, class_widths,
-                           keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias,
-                           att, bias)
+                           *key_parts(keys), ps, pt, valid, q, w1, b1, g, b,
+                           w2f, cbias, att, bias)
 
 
 fused_pe_link_attention.launches = 0

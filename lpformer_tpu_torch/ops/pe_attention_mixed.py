@@ -9,6 +9,13 @@ For each link b and each valid slot c, with k = ecls[b, c]:
   s      = sum_o att[o] * leaky_relu_0.2(xj[o] * q[b,o])
   out[b] = sum_c softmax_c(s) xj + bias;  m[b], l[b] the softmax stats
 
+The keys come dense, a [B, C, O] tensor, or by id, as ``KeyRows(table,
+ids)``: slot (b, c)'s key is row ids[b, c] of a node table [N', O], which
+the kernels read in place, so no [B, C, O] copy of the rows is written
+(the model's fused route passes X_node @ W_r[:d] and the context ids).
+The op's gradient for the table sums dkeys' valid rows into their ids
+(``ops/gather.py:_rows_sum``, the scatter-add kernel on the card).
+
 ``fused_pe_link_attention_mixed`` is a ``torch.autograd.Function``. On
 CUDA tensors both directions launch hand-written CUDA kernels (built with
 nvcc for sm_90a at first use, loaded with ctypes) that take tiles of one
@@ -35,10 +42,11 @@ the f32 additions.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from lpformer_tpu_torch.ops import gather
 from lpformer_tpu_torch.ops._cuda import bind, build_cuda, check_tensors
 from lpformer_tpu_torch.ops.segment import masked_softmax
 
@@ -72,7 +80,7 @@ def build_bwd() -> Tuple[str, str]:
 def _load():
     global _LIB
     if _LIB is None:
-        _LIB = bind(build()[0], "pe_attention_mixed_fwd", 19, 7,
+        _LIB = bind(build()[0], "pe_attention_mixed_fwd", 20, 7,
                     "pe_attention_mixed_error_string")
     return _LIB
 
@@ -80,9 +88,71 @@ def _load():
 def _load_bwd():
     global _LIB_BWD
     if _LIB_BWD is None:
-        _LIB_BWD = bind(build_bwd()[0], "pe_attention_mixed_bwd", 25, 7,
+        _LIB_BWD = bind(build_bwd()[0], "pe_attention_mixed_bwd", 26, 7,
                         "pe_attention_mixed_bwd_error_string")
     return _LIB_BWD
+
+
+class KeyRows(NamedTuple):
+    """The [B, C, O] key table by id: slot (b, c)'s key is table[ids[b,
+    c]]. Both tables' ops take it in place of a dense keys tensor, and
+    their kernels read each valid slot's row from ``table`` itself. Dead
+    slots' ids are never read and may lie out of range (the context
+    tables' pad id N). ``shape``, ``dtype``, ``device`` and
+    ``element_size()`` are those of the [B, C, O] tensor it stands for,
+    so code that reads them off a keys tensor takes either form."""
+    table: torch.Tensor     # [N', O] bf16/f32, N' >= 1
+    ids: torch.Tensor       # [B, C] int32
+
+    @property
+    def shape(self) -> torch.Size:
+        return torch.Size((*self.ids.shape, self.table.shape[-1]))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.table.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.table.device
+
+    def element_size(self) -> int:
+        return self.table.element_size()
+
+
+def key_parts(keys) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(table, ids) of either form of the keys: a ``KeyRows``' own, or a
+    dense [B, C, O] tensor and None (each slot its own row)."""
+    if isinstance(keys, KeyRows):
+        return keys.table, keys.ids
+    return keys, None
+
+
+def join_keys(table, ids):
+    """The keys from ``key_parts``' (table, ids)."""
+    return table if ids is None else KeyRows(table, ids)
+
+
+def dense_keys(keys, valid) -> torch.Tensor:
+    """The keys as a [B, C, O] tensor: a dense one as it is; a
+    ``KeyRows``' rows gathered, dead slots' rows zero (as the dense route's
+    pad row gives them)."""
+    table, ids = key_parts(keys)
+    if ids is None:
+        return keys
+    rows = table[torch.where(valid, ids, 0).long()]
+    return torch.where(valid[..., None], rows, rows.new_zeros(()))
+
+
+def table_grad(dkeys, table, ids, valid):
+    """The gradient of the keys' source from the op's dkeys [B, C, O]:
+    dkeys itself for dense keys; for a ``KeyRows`` table, the valid slots'
+    rows summed into their ids in f32 (``ops/gather.py:_rows_sum``, as the
+    dense route's gather sums them) and cast once to the table's dtype."""
+    if ids is None:
+        return dkeys
+    return gather._rows_sum(ids, dkeys, table.shape[0], valid).to(
+        table.dtype)
 
 
 def tile_slots(o, dh):
@@ -173,6 +243,7 @@ def fused_pe_link_attention_mixed_plain(
     """The kernel's math in torch ops, as the TPU kernel orders it: each
     direction's hidden activation is rounded to w2f's dtype and multiplied
     by its class's W2f separately. Returns (out [B, O], m [B], l [B])."""
+    keys = dense_keys(keys, valid)
     kdt = w2f.dtype
     e = ecls.long()
     w1s, b1s, gs, bs = w1[e], b1[e], g[e], b[e]          # [B, C, (2,) dh]
@@ -193,6 +264,21 @@ def fused_pe_link_attention_mixed_plain(
     return attend(xj, valid, q, att, bias)
 
 
+def key_checks(keys):
+    """``check_tensors``' entries for either form of the keys: a dense
+    [B, C, O] tensor, or a ``KeyRows``' table [N', O] (at least one row)
+    and ids [B, C] int32."""
+    table, ids = key_parts(keys)
+    bsz, c, o = keys.shape
+    if ids is None:
+        return {"keys": (table, table.dtype, (bsz, c, o))}
+    if table.dim() != 2 or table.shape[0] < 1:
+        raise ValueError("the key table must be [N', O] with N' >= 1, got "
+                         f"{tuple(table.shape)}")
+    return {"table": (table, table.dtype, (table.shape[0], o)),
+            "ids": (ids, torch.int32, (bsz, c))}
+
+
 def _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
            bias=None, **extra):
     """Dtypes, shapes, devices, contiguity and alignment the kernels take;
@@ -203,7 +289,7 @@ def _check(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
     per_link = {"g_out": (bsz, o), "m": (bsz,), "l": (bsz,),
                 "delta": (bsz,)}
     want = {
-        "keys": (keys, keys.dtype, (bsz, c, o)),
+        **key_checks(keys),
         "ps": (ps, torch.float32, (bsz, c)),
         "pt": (pt, torch.float32, (bsz, c)),
         "valid": (valid, torch.bool, (bsz, c)),
@@ -246,9 +332,9 @@ def _fwd(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, bias
 def launch_fwd(lib, fn, err_fn, keys, ps, pt, valid, slots, offsets, rest,
                ints=()):
     """Either table's forward kernels: entry ``fn`` of ``lib`` (error text
-    from ``err_fn``) on checked inputs, the compacted slots and ``rest`` =
-    (q, w1, b1, g, b, w2f, cbias, att, bias), with ``ints`` after (B, C,
-    O, dh, K). Returns (out, m, l)."""
+    from ``err_fn``) on checked inputs (keys dense or by id), the
+    compacted slots and ``rest`` = (q, w1, b1, g, b, w2f, cbias, att,
+    bias), with ``ints`` after (B, C, O, dh, K). Returns (out, m, l)."""
     bsz, c, o = keys.shape
     k, _, dh = rest[1].shape
     f32 = dict(dtype=torch.float32, device=keys.device)
@@ -256,8 +342,8 @@ def launch_fwd(lib, fn, err_fn, keys, ps, pt, valid, slots, offsets, rest,
     out = torch.empty((bsz, o), **f32)
     m = torch.empty((bsz,), **f32)
     l = torch.empty((bsz,), **f32)
-    ptrs = [t.data_ptr() for t in (keys, ps, pt, valid, slots, offsets,
-                                   *rest, s, out, m, l)]
+    ptrs = key_ptrs(keys) + [t.data_ptr() for t in (
+        ps, pt, valid, slots, offsets, *rest, s, out, m, l)]
     with torch.cuda.device(keys.device):
         err = getattr(lib, fn)(
             *ptrs, bsz, c, o, dh, k, *ints, tile_slots(o, dh),
@@ -267,6 +353,13 @@ def launch_fwd(lib, fn, err_fn, keys, ps, pt, valid, slots, offsets, rest,
         raise RuntimeError(f"{fn} launch failed: "
                            + getattr(lib, err_fn)(err).decode())
     return out, m, l
+
+
+def key_ptrs(keys):
+    """The kernels' (keys, ids) pointers: a dense table's and null, or a
+    ``KeyRows``' table and ids."""
+    table, ids = key_parts(keys)
+    return [table.data_ptr(), None if ids is None else ids.data_ptr()]
 
 
 def fused_pe_link_attention_mixed_bwd_plain(
@@ -280,6 +373,7 @@ def fused_pe_link_attention_mixed_bwd_plain(
     is f32. Returns (dkeys [B, C, O] keys' dtype, dq [B, O], dw1cat
     [3K, dh] rows (w1a_k | w1b_k | b1_k), dg [K, dh], db [K, dh],
     dw2 [K, dh, O] f32, dcb [K, O], datt [1, O])."""
+    keys = dense_keys(keys, valid)
     kdt = w2f.dtype
     k_n, _, dh = w1.shape
     o = keys.shape[-1]
@@ -366,7 +460,7 @@ def fused_pe_link_attention_mixed_bwd(
     lib = _load_bwd()
     with torch.cuda.device(dev):
         err = lib.pe_attention_mixed_bwd(
-            keys.data_ptr(), ps.data_ptr(), pt.data_ptr(), slots.data_ptr(),
+            *key_ptrs(keys), ps.data_ptr(), pt.data_ptr(), slots.data_ptr(),
             offsets.data_ptr(), q.data_ptr(), g_out.data_ptr(), m.data_ptr(),
             l.data_ptr(), delta.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             g.data_ptr(), b.data_ptr(), w2f.data_ptr(), cbias.data_ptr(),
@@ -390,30 +484,34 @@ fused_pe_link_attention_mixed_bwd.launches = 0
 class MixedOp(torch.autograd.Function):
     """The differentiable op over a (forward, backward) pair of
     implementations: ``fused_pe_link_attention_mixed`` passes the kernel
-    wrappers. Returns (out, m, l); m and l carry no gradient."""
+    wrappers, and the keys as ``key_parts`` splits them (table, ids).
+    Returns (out, m, l); m and l carry no gradient."""
 
     @staticmethod
-    def forward(ctx, fwd, bwd, keys, ps, pt, valid, ecls, q, w1, b1, g, b,
-                w2f, cbias, att, bias):
-        args = (keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
-                bias)
-        out, m, l = fwd(*args)
+    def forward(ctx, fwd, bwd, table, ids, ps, pt, valid, ecls, q, w1, b1,
+                g, b, w2f, cbias, att, bias):
+        keys = join_keys(table, ids)
+        out, m, l = fwd(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f,
+                        cbias, att, bias)
         ctx.bwd = bwd
-        ctx.save_for_backward(*args, m, l, out)
+        ctx.save_for_backward(table, ids, ps, pt, valid, ecls, q, w1, b1, g,
+                              b, w2f, cbias, att, bias, m, l, out)
         ctx.mark_non_differentiable(m, l)
         return out, m, l
 
     @staticmethod
     def backward(ctx, g_out, _dm, _dl):
-        (keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, bias,
-         m, l, out) = ctx.saved_tensors
+        (table, ids, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
+         bias, m, l, out) = ctx.saved_tensors
+        keys = join_keys(table, ids)
         g_out, delta = backward_cotangent(g_out, out, bias)
         dkeys, dq, dw1cat, dg, db, dw2, dcb, datt = ctx.bwd(
             keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, m,
             l, g_out, delta)
         dw1, db1 = split_layer1_grads(dw1cat)
-        return (None, None, dkeys, None, None, None, None, dq, dw1, db1, dg,
-                db, dw2.to(w2f.dtype), dcb, datt, g_out.sum(0))
+        return (None, None, table_grad(dkeys, table, ids, valid), None, None,
+                None, None, None, dq, dw1, db1, dg, db, dw2.to(w2f.dtype),
+                dcb, datt, g_out.sum(0))
 
 
 def backward_cotangent(g_out, out, bias):
@@ -434,7 +532,8 @@ def split_layer1_grads(dw1cat):
 
 
 def fused_pe_link_attention_mixed(
-    keys: torch.Tensor,    # [B, C, O] bf16/f32 gathered X_node @ W_r[:d] rows
+    keys,                  # [B, C, O] bf16/f32 X_node @ W_r[:d] rows:
+                           # KeyRows(table, ids), or a dense tensor
     ps: torch.Tensor,      # [B, C] f32 ppr(src, v)
     pt: torch.Tensor,      # [B, C] f32 ppr(tgt, v)
     valid: torch.Tensor,   # [B, C] bool
@@ -450,13 +549,14 @@ def fused_pe_link_attention_mixed(
     bias: torch.Tensor,    # [O]
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(out [B, O] f32, m [B], l [B]), differentiable in every float input
-    but ps and pt (whose grads the JAX package returns as zeros). CUDA
-    tensors launch the kernels (``.launches`` on this function counts the
-    forward's, on ``fused_pe_link_attention_mixed_bwd`` the backward's);
-    CPU tensors run the plain versions."""
-    return MixedOp.apply(_fwd, fused_pe_link_attention_mixed_bwd, keys, ps,
-                         pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
-                         bias)
+    but ps and pt (whose grads the JAX package returns as zeros): a
+    ``KeyRows``' table among them, not its ids. CUDA tensors launch the
+    kernels (``.launches`` on this function counts the forward's, on
+    ``fused_pe_link_attention_mixed_bwd`` the backward's); CPU tensors
+    run the plain versions."""
+    return MixedOp.apply(_fwd, fused_pe_link_attention_mixed_bwd,
+                         *key_parts(keys), ps, pt, valid, ecls, q, w1, b1, g,
+                         b, w2f, cbias, att, bias)
 
 
 fused_pe_link_attention_mixed.launches = 0

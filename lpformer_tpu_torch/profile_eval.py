@@ -79,7 +79,9 @@ def ppa_sweep_inputs(params, cfg, ds, batch):
         with measure.recording_kernel_inputs() as rec:
             harness.make_score_fn(cfg)(params, ds.graph, X, t[:, 0], t[:, 1])
     a = rec["fwd"][0]
-    return [a, dict(a, keys=a["keys"].float(), w2f=a["w2f"].float())]
+    table, ids = pam.key_parts(a["keys"])
+    return [a, dict(a, keys=pam.join_keys(table.float(), ids),
+                    w2f=a["w2f"].float())]
 
 
 def main(classic: bool = False, citation2: bool = False, ppa: bool = False,

@@ -3,7 +3,7 @@ the card, each against its yardsticks, in CUDA-event time and in traced
 device time.
 
     python -m lpformer_tpu_torch.profile_kernels [--link | --kinks |
-                                                  --cli-widths]
+                                                  --cli-widths | --key-rows]
 
 (``--link``: the per-link attention pair alone; ``--kinks``: item 4
 alone.)
@@ -54,11 +54,28 @@ alone.)
    once more with its elements at the leaky ReLU's kink held to an f64
    witness. A measurement: nothing is held to a bound.
 
+6. With ``--key-rows``, rows 1, 2, 4 and 5 (both tables' forward and
+   backward wrappers) fed their keys by id (``KeyRows``: a node table and
+   the ids, dead slots on the pad id N with no pad row;
+   ``measure.key_rows_inputs``) against the same wrappers fed the table
+   that ``gather_rows_valid`` gathers from it: at the main shape (N =
+   50,001 rows; bf16 and f32) and at the citation2-like [32768, 448, 64]
+   f32 (N = 1,000,000; the combined table with
+   ``measure.citation2_link_counts``, the classic one as 96 | 96 | 256),
+   held: m and l bit for bit, out within the reordering of its f32
+   atomics (the gathered table's own second run gives the yardstick),
+   dkeys bit for bit and the summed grads within KEY_ROWS_TOL, one launch
+   counted per call and none of the by-id calls synchronising with the
+   host; the event times of each wrapper both ways, in turns (by id,
+   gathered, gathered, by id), the forward's tile kernels traced both
+   ways, and the time of the gather that the by-id call makes
+   unnecessary.
+
 Items 1-3 hold each result to its plain version first (the lookup bit for
 bit).
-The script calls only functions that earlier trees of the port have too,
-so a copy of this file in such a tree's package measures that tree's
-kernels. Needs a CUDA card.
+The script calls only functions that earlier trees of the port have too
+(item 6 apart, which needs ``KeyRows``), so a copy of this file in such a
+tree's package measures that tree's kernels. Needs a CUDA card.
 """
 from __future__ import annotations
 
@@ -135,8 +152,11 @@ def scatter_report(card, label, ids, ct, n, live, log=print):
     kernel_ms, zero_ms = split_scatter_trace(rows)
     d = ct.shape[-1]
     flat_ids, flat_ct = ids.reshape(-1).long(), ct.reshape(-1, d)
-    all_ms = time_ms(lambda: torch.zeros((n, d), device=ct.device).index_add_(
-        0, flat_ids, flat_ct.float()), 10, per=10)
+    # every row into an output with a pad row n, where dead rows may lie
+    # (the PE + attention ops' key rows: the context ids' pad id)
+    all_ms = time_ms(lambda: torch.zeros(
+        (n + 1, d), device=ct.device).index_add_(0, flat_ids, flat_ct.float()),
+        10, per=10)
     keep = live.reshape(-1)
     live_ids, live_ct = flat_ids[keep], flat_ct[keep].float()
     live_ms = time_ms(lambda: torch.zeros((n, d), device=ct.device)
@@ -425,6 +445,119 @@ def cli_widths_report(card, dev):
         torch.cuda.empty_cache()
 
 
+# Item 6: the wrappers fed by id against the gathered table. out sums each
+# link's runs of valid slots with f32 atomics, in an order that changes
+# from run to run: max |diff| within OUT_REORDER_TOL of max(1, max |out|)
+# (a handful of ulps of 1). The backward's dq and weight grads sum through
+# f32 atomics too: max |diff| / max |gathered| within KEY_ROWS_TOL. A row
+# read from the wrong place moves every one of them by far more.
+OUT_REORDER_TOL = 2e-6
+KEY_ROWS_TOL = 1e-5
+
+
+def _key_rows_cases(dev):
+    """(table, forward wrapper, backward wrapper, shape label, inputs, node
+    rows) of item 6, one at a time."""
+    from lpformer_tpu_torch.ops import pe_attention as pa
+    from lpformer_tpu_torch.ops import pe_attention_mixed as pam
+
+    c2 = dict(b=32768, o=64, dh=64)
+    layouts = (
+        ("combined", pam.fused_pe_link_attention_mixed,
+         pam.fused_pe_link_attention_mixed_bwd, measure.kernel_inputs,
+         dict(c2, c=448, counts=measure.citation2_link_counts)),
+        ("classic", pa.fused_pe_link_attention,
+         pa.fused_pe_link_attention_bwd, measure.classic_kernel_inputs,
+         dict(c2, widths=(96, 96, 256))))
+    for table, op, bwd, inputs, wide in layouts:
+        for dtype in (torch.bfloat16, torch.float32):
+            yield (table, op, bwd, f"main {str(dtype)[6:]}",
+                   inputs(dev, dtype), measure.N_ROWS)
+        yield (table, op, bwd, "citation2-like f32",
+               inputs(dev, torch.float32, **wide), 1_000_000)
+
+
+def _unsynced(fn):
+    """``fn()`` under ``set_sync_debug_mode("error")``: a host
+    synchronisation inside fails it."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def _pair(ms):
+    """Timings taken by id, gathered, gathered, by id, as text."""
+    return f"{ms[0]:.4f}, {ms[3]:.4f} / {ms[1]:.4f}, {ms[2]:.4f} ms"
+
+
+def key_rows_report(card, dev, log=print):
+    """Item 6 of the module's docstring; raises on a disagreement."""
+    from lpformer_tpu_torch.ops.gather import gather_rows_valid
+
+    for table, op, bwd, label, a, n in _key_rows_cases(dev):
+        by_id, dense = measure.key_rows_inputs(a, n)
+        del a["keys"]
+        head = f"key rows {table} {label} ({tuple(dense.shape)}, N={n})"
+        before = op.launches
+        got = _unsynced(lambda: op(keys=by_id, **a))
+        if op.launches != before + 1:
+            raise AssertionError(f"{head}: {op.launches - before} launches")
+        want = op(keys=dense, **a)
+        again = op(keys=dense, **a)
+        scale = max(1.0, float(want[0].abs().max()))
+        out_err = float((got[0] - want[0]).abs().max())
+        rerun = float((again[0] - want[0]).abs().max())
+        same_ml = torch.equal(got[1], want[1]) and torch.equal(got[2],
+                                                               want[2])
+        g_out = 0.1 * torch.randn(want[0].shape, device=dev,
+                                  generator=torch.Generator(
+                                      device=dev).manual_seed(1))
+        bi = {k: v for k, v in a.items() if k != "bias"}
+        bi.update(m=want[1], l=want[2], g_out=g_out,
+                  delta=(g_out * (want[0] - a["bias"])).sum(-1))
+        before = bwd.launches
+        got_b = _unsynced(lambda: bwd(keys=by_id, **bi))
+        if bwd.launches != before + 1:
+            raise AssertionError(f"{head}: {bwd.launches - before} backward "
+                                 "launches")
+        want_b = bwd(keys=dense, **bi)
+        same_dkeys = torch.equal(got_b[0], want_b[0])
+        sums = max(_rel(x, y)[0] for x, y in zip(got_b[1:], want_b[1:]))
+        del got, want, again, got_b, want_b
+        # by id, gathered, gathered, by id: each way's two timings
+        reps, turns = ((10, 20) if label.startswith("main") else (5, 5),
+                       (by_id, dense, dense, by_id))
+        fwd_ms = [time_ms(lambda k=k: op(keys=k, **a), *reps) for k in turns]
+        bwd_ms = [time_ms(lambda k=k: bwd(keys=k, **bi), *reps)
+                  for k in turns]
+        # the forward's two tile launches alone, traced
+        tiles_ms = [sum(t for t, _, name in traced_ms(
+            lambda k=k: op(keys=k, **a))[1] if "pe_tiles_fwd_kernel" in name)
+            for k in (by_id, dense)]
+        padded = torch.cat([by_id.table, by_id.table.new_zeros(
+            (1, by_id.table.shape[1]))])
+        gather_ms = time_ms(lambda: gather_rows_valid(
+            padded, by_id.ids, a["valid"]), *reps)
+        log(f"{head}: {int(a['valid'].sum())} valid slots; m, l bit for bit "
+            f"{same_ml}, max|out| diff {out_err:.3e} (the gathered table "
+            f"run twice {rerun:.3e}; tol {OUT_REORDER_TOL} x {scale:.3g}); "
+            f"dkeys bit for bit {same_dkeys}, summed grads max rel diff "
+            f"{sums:.3e} (tol {KEY_ROWS_TOL}); by id / gathered: forward "
+            f"{_pair(fwd_ms)} (its tile kernels traced {tiles_ms[0]:.4f} / "
+            f"{tiles_ms[1]:.4f} ms), backward {_pair(bwd_ms)}; the gather "
+            f"{gather_ms:.4f} ms  [{card}]")
+        if not (same_ml and same_dkeys
+                and out_err <= OUT_REORDER_TOL * scale
+                and sums <= KEY_ROWS_TOL):
+            raise AssertionError(f"{head}: the wrappers fed by id disagree "
+                                 "with the gathered table")
+        del a, bi, by_id, dense, padded
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
     dev = resolve_device()
@@ -438,6 +571,9 @@ def main(argv=None) -> None:
         return
     if "--cli-widths" in args:
         cli_widths_report(card, dev)
+        return
+    if "--key-rows" in args:
+        key_rows_report(card, dev)
         return
     os.environ.pop("LPFORMER_FUSED_LOOKUP", None)   # the search route below
     ids, ct, n, live = measure.scatter_inputs(dev)

@@ -254,6 +254,28 @@ def classic_kernel_inputs(dev, dtype, seed=0, b=B, widths=CLASSIC_WIDTHS,
     return a
 
 
+def key_rows_inputs(a, n, seed=2):
+    """The keys of the PE+attention inputs ``a`` (either table) by id, on
+    a's device: (``KeyRows`` of a node table [n, O] drawn from ``seed`` in
+    a's key dtype and ids [B, C] int32, the valid slots' rows uniform over
+    the table's and the dead slots' the pad id n, outside it; the same
+    keys gathered into a dense [B, C, O] table, as the dense route
+    gathers them: ``gather_rows_valid`` over the table and a zero pad row
+    n)."""
+    from lpformer_tpu_torch.ops.gather import gather_rows_valid
+    from lpformer_tpu_torch.ops.pe_attention_mixed import KeyRows
+
+    valid = a["valid"]
+    dev, dtype, o = valid.device, a["keys"].dtype, a["keys"].shape[-1]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    table = (0.5 * torch.randn(n, o, generator=g, device=dev)).to(dtype)
+    ids = torch.randint(0, n, valid.shape, generator=g, device=dev,
+                        dtype=torch.int32)
+    ids = torch.where(valid, ids, n)
+    padded = torch.cat([table, table.new_zeros((1, o))])
+    return KeyRows(table, ids), gather_rows_valid(padded, ids, valid)
+
+
 def kernel_bound_ms(a):
     """Least time for fused_pe_link_attention_mixed on the inputs ``a``:
     the larger of the bytes it must move over HBM bandwidth and its
@@ -317,10 +339,20 @@ def in_link_chunks(fn, a, n_per_link, step=None):
     b, step = a["keys"].shape[0], step or plain_links(a)
     if step >= b:
         return fn(**a)
-    parts = [fn(**{n: v[lo:lo + step] if n in PER_LINK else v
+    parts = [fn(**{n: _links(v, lo, lo + step) if n in PER_LINK else v
                    for n, v in a.items()}) for lo in range(0, b, step)]
     return tuple(torch.cat(xs) if i < n_per_link else torch.stack(xs).sum(0)
                  for i, xs in enumerate(zip(*parts)))
+
+
+def _links(v, lo, hi):
+    """Links [lo, hi) of a per-link input: its rows, or a ``KeyRows``'
+    ids' rows over the whole table."""
+    from lpformer_tpu_torch.ops.pe_attention_mixed import KeyRows
+
+    if isinstance(v, KeyRows):
+        return KeyRows(v.table, v.ids[lo:hi])
+    return v[lo:hi]
 
 
 def bwd_inputs(a, seed=1):
@@ -409,9 +441,10 @@ def mixed_bwd_f64(keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias,
     dcb) of its own f32 per-slot terms, each taken in f64, then the same
     four sums of the terms' magnitudes. All eight in f64."""
     from lpformer_tpu_torch.ops.pe_attention_mixed import (
-        attend_backward, ln_affine, ln_backward,
+        attend_backward, dense_keys, ln_affine, ln_backward,
     )
 
+    keys = dense_keys(keys, valid)
     k_n, _, dh = w1.shape
     o = keys.shape[-1]
     e = ecls.long()
@@ -575,13 +608,14 @@ def _bwd_bound(a, slot_bytes):
 @contextlib.contextmanager
 def recording_kernel_inputs():
     """Inside the block, the model's combined-table op and the context-key
-    gathers' scatter append every call's inputs to the lists yielded as
+    row sums' scatter append every call's inputs to the lists yielded as
     ``fwd``, ``bwd`` and ``scatter``: the op's forward inputs and its
     backward wrapper's (m, l, the cotangent g_out and delta included), by
-    name, detached; the scatter's (ids, ct, n, live) as the gathers'
-    backward passes them (``ops/gather.py:_rows_sum``). So a training step
-    run inside gives the kernels' inputs at the tables a batch really
-    extracts. The calls still run the real wrappers."""
+    name, detached, the keys in the form the model passed them (the fused
+    route's ``KeyRows``); the scatter's (ids, ct, n, live)
+    as the key table's gradient passes them (``ops/gather.py:_rows_sum``).
+    So a training step run inside gives the kernels' inputs at the tables
+    a batch really extracts. The calls still run the real wrappers."""
     from lpformer_tpu_torch.models import link_transformer as lt
     from lpformer_tpu_torch.ops import gather
     from lpformer_tpu_torch.ops import pe_attention_mixed as pam
@@ -594,16 +628,21 @@ def recording_kernel_inputs():
     real_op, real_rows_sum = lt.fused_pe_link_attention_mixed, \
         gather._rows_sum
 
+    def detached(x):
+        table, ids = pam.key_parts(x)
+        return x.detach() if ids is None else pam.KeyRows(table.detach(),
+                                                          ids)
+
     def named(names, args):
-        return {n: a.detach() for n, a in zip(names, args)}
+        return {n: detached(x) for n, x in zip(names, args)}
 
     def bwd(*args):
         rec["bwd"].append(named(bwd_names, args))
         return pam.fused_pe_link_attention_mixed_bwd(*args)
 
-    def op(*args):
-        rec["fwd"].append(named(fwd_names, args))
-        return pam.MixedOp.apply(pam._fwd, bwd, *args)
+    def op(keys, *args):
+        rec["fwd"].append(named(fwd_names, (keys, *args)))
+        return pam.MixedOp.apply(pam._fwd, bwd, *pam.key_parts(keys), *args)
 
     def rows_sum(ids, ct, n, valid):
         if ids.numel() >= gather._SCATTER_MIN_ROWS:    # the scatter's route

@@ -13,7 +13,9 @@ The mirror walks what the kernels walk: the valid slots compacted in
 (class, link, column) order, as a compaction lists them (slots and
 offsets); tiles of TS slots of one class, each through one prologue
 (``_tile_prologue``): [Ha | Hb] stacked along the reduction axis against
-[W2f_k ; W2f_k], keys and cbias added, each row's logit. The forward
+[W2f_k ; W2f_k], each slot's key row (read by id from a ``KeyRows``'
+table, or the slot's own row of dense keys) and cbias added, each row's
+logit. The forward
 writes the logits into a [B*C] scratch at the slot ids, takes each
 link's m and l from its row of the scratch under the validity, then runs
 the tiles again and sums alpha xj along each link's run of rows in a
@@ -32,6 +34,7 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_key_rows as key_rows
 from test_torch_pe_attention import (
     ALIGNED, DIFF, MISALIGNED, ORDER, _class0_count, _cot, _inputs,
     _jax_fwd, _jax_grads, _torch_args,
@@ -39,9 +42,11 @@ from test_torch_pe_attention import (
 from test_torch_pe_attention_mixed_bwd import assert_close_scaled
 
 from lpformer_tpu_torch.ops import pe_attention as tpa
+from lpformer_tpu_torch.ops import pe_attention_mixed as tpam
 from lpformer_tpu_torch.ops.pe_attention_mixed import (
-    compact_tagged_slots, ln_affine, ln_backward,
+    KeyRows, compact_tagged_slots, key_parts, ln_affine, ln_backward,
 )
+from lpformer_tpu_torch.utils import measure
 
 NAMES = ("dkeys", "dq", "dw1cat", "dg", "db", "dw2", "dcb", "datt")
 EMPTY_M = -5e29
@@ -55,6 +60,15 @@ def _h(ps, pt, w1, b1, g, b, k, kdt):
     dirs = [ln_affine(x0, x1, w1[k, 0], w1[k, 1], b1[k], g[k], b[k])
             for x0, x1 in ((ps, pt), (pt, ps))]
     return dirs, [torch.relu(y).to(kdt).float() for _, _, y in dirs]
+
+
+def slot_keys(keys, slots):
+    """The key rows of the slots ``slots``, as the kernels read them: row
+    ids[slot] of a ``KeyRows``' table, or row slot of dense [B, C, O]
+    keys."""
+    table, ids = key_parts(keys)
+    rows = slots if ids is None else ids.reshape(-1)[slots].long()
+    return table.reshape(-1, table.shape[-1])[rows]
 
 
 def _runs(links):
@@ -90,7 +104,7 @@ def _tile_prologue(keys, ps, pt, q, w1, b1, g, b, w2f, cbias, att, slots,
             last = int(links[-1])
             # [Ha | Hb] [W ; W]: each direction's rounded h multiplied
             x = (torch.cat([ha, hb], 1) @ torch.cat([w, w], 0)
-                 + (keys.reshape(-1, o)[ids].float() + cbias[k]))
+                 + (slot_keys(keys, ids).float() + cbias[k]))
             pre = x * q[links]
             z = torch.where(pre >= 0, pre, 0.2 * pre)
             yield k, ids, links, (a0, a1), dirs, x, pre, z, (z * att).sum(1)
@@ -334,3 +348,35 @@ def test_mirror_matches_pallas_vjp_f32():
                b1=dw1cat[2 * k:], g=dg, b=db, w2f=dw2, cbias=dcb, att=datt)
     for n in DIFF[:-1]:
         assert_close_scaled(got[n].numpy(), jg[n], 1e-4, 1e-5, n)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("table", ["combined", "classic"])
+def test_tile_mirrors_read_keys_by_id(table, bf16):
+    """The kernels' tile mirrors fed by id equal the mirrors fed the
+    gathered table, forward and backward, with dead ids N and no pad row;
+    in float32 they also hold the plain op fed by id to the mirrors'
+    tolerance."""
+    a, tab, ids = key_rows._inputs(table, bf16, "pad id", b=12)
+    valid = a["valid"]
+    if table == "combined":
+        slots, offsets = tpam.compact_tagged_slots(valid, a["ecls"], 3)
+    else:
+        slots, offsets = classic_slots(valid, a["class_widths"])
+    fwd = ("ps", "pt", "valid", "q", "w1", "b1", "g", "b", "w2f", "cbias",
+           "att", "bias")
+    by_id, dense = KeyRows(tab, ids), key_rows._gathered(tab, ids, valid)
+    got = mirror_fwd(by_id, *(a[n] for n in fwd), slots, offsets)
+    want = mirror_fwd(dense, *(a[n] for n in fwd), slots, offsets)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y)
+    plain = key_rows._op(table)(keys=by_id, **a)
+    if not bf16:
+        assert_fwd_close(got, plain, valid, a["bias"])
+    extra = measure.bwd_inputs(dict(a, keys=dense))
+    rest = [extra[n] for n in ("q", "w1", "b1", "g", "b", "w2f", "cbias",
+                               "att", "m", "l", "g_out", "delta")]
+    got_b = mirror_bwd(by_id, a["ps"], a["pt"], *rest, slots, offsets)
+    want_b = mirror_bwd(dense, a["ps"], a["pt"], *rest, slots, offsets)
+    for x, y in zip(got_b, want_b):
+        assert torch.equal(x, y)

@@ -89,8 +89,10 @@ def test_op_pairs_match_plain_pair_in_a_ddi_like_step(ddi_like, seed,
                         scatter.scatter_rows_add_plain)
 
     def step(pair):
-        monkeypatch.setattr(lt, "fused_pe_link_attention_mixed",
-                            lambda *a: pam.MixedOp.apply(*pair, *a))
+        monkeypatch.setattr(
+            lt, "fused_pe_link_attention_mixed",
+            lambda keys, *a: pam.MixedOp.apply(*pair, *pam.key_parts(keys),
+                                               *a))
         loss = step_mod.loss_fn(params, cfg, ds.graph, pos[:, 0], pos[:, 1],
                                 neg[0], neg[1], w, mr, None)
         return float(loss.detach()), torch.autograd.grad(loss, leaves)
