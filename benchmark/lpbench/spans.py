@@ -130,7 +130,8 @@ def _kineto(prof):
 
 
 def per_sweep_ms(run, seconds: float):
-    """``seconds`` of the window as milliseconds a sweep."""
+    """``seconds`` of the window as milliseconds a unit of its work: an
+    evaluation sweep, or a training step."""
     return 1e3 * seconds / run.units if run.units else None
 
 

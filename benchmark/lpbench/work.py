@@ -39,14 +39,15 @@ def pe_fwd_least_s(keys_shape, w1_shape, kb: int, nv: int) -> float:
 
 def pe_bwd_least_s(keys_shape, w1_shape, kb: int, nv: int) -> float:
     """Its backward: the valid mask, q, g_out, m, l, delta and the weights
-    once, per valid slot its key row, ps, pt and class; all of dkeys
-    [B, C, O], dq and the weight grads written once. Three dh x O products
+    once, per valid slot its key row, ps, pt and class; dkeys' valid rows
+    (the other rows of dkeys [B, C, O] are zeros, which need no work of
+    the op), dq and the weight grads written once. Three dh x O products
     per valid slot at the tensor rate, ~(40 dh + 30 O) f32 operations."""
     b, c, o = keys_shape
     k, _, dh = w1_shape
     inputs = (b * c + 2 * 4 * b * o + 3 * 4 * b + nv * (o * kb + 12)
               + 4 * k * dh * 5 + kb * k * dh * o + 4 * (k * o + o))
-    outputs = (b * c * o * kb + 4 * b * o + 4 * k * dh * 5
+    outputs = (nv * o * kb + 4 * b * o + 4 * k * dh * 5
                + 4 * k * dh * o + 4 * (k * o + o))
     return least_s(inputs + outputs, nv * 3 * 2 * dh * o,
                    nv * (40 * dh + 30 * o), kb == 2)

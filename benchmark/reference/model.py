@@ -25,10 +25,14 @@ from typing import Dict, List
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from reference.graph import RefGraph
 
 _FP8_MAX = 448.0
+# table elements (links x slots x dim) of one block of the attention: a
+# [links, C, dim] float32 activation of a block stays near 256 MiB
+ATTEND_ELEMS = 2 ** 26
 
 # float32 products stay float32 on the card
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -200,12 +204,12 @@ class Model:
                 take(pt), kept, counts)
 
     # -- links ------------------------------------------------------------
-    def pairwise(self, P, X, src, tgt, ctx, gen=None):
-        c = self.cfg
-        ids, cls, ps, pt, valid, counts = ctx
+    def attend(self, P, X, q_, ids, cls, ps, pt, valid):
+        """Each link's attention over its context table [B, C]: the PPR
+        encodings, the keys, the softmax over the valid slots and the
+        weighted sum of the keys [B, dim]."""
         lp = P["att_layers"][0]
-        d = c["dim"]
-        q_ = self.lin(lp["lin_l"], X[src]) + self.lin(lp["lin_l"], X[tgt])
+        d = self.cfg["dim"]
         pe = 0.0
         for code, name in ((2, "ppr_encoder_cn"), (1, "ppr_encoder_onehop"),
                            (3, "ppr_encoder_non1hop")):
@@ -222,9 +226,41 @@ class Model:
         m = logits.amax(1, keepdim=True).clamp_min(-5e29)
         e = torch.exp(logits - m) * valid
         alpha = e / e.sum(1, keepdim=True).clamp_min(1e-16)
-        out = (alpha[..., None] * xj).sum(1) + lp["bias"]
+        return (alpha[..., None] * xj).sum(1)
+
+    def attend_blocks(self, P, X, q_, ctx):
+        """``attend`` over blocks of links, taken in the order of their
+        valid counts, each block's table cut to its own largest count: a
+        table holds its kept slots first, so the columns cut are invalid
+        ones, which add exact zeros. Under autograd each block is
+        recomputed in the backward (``torch.utils.checkpoint``; it draws
+        nothing at random), so no [B, C, dim] activation is held."""
+        ids, cls, ps, pt, valid, _ = ctx
+        b, c = valid.shape
+        n = valid.sum(1)
+        order = torch.argsort(n, stable=True)
+        widths = n[order].tolist()
+        per = max(1, ATTEND_ELEMS // (c * self.cfg["dim"]))
+        parts = []
+        for i in range(0, b, per):
+            rows = order[i:i + per]
+            w = max(widths[min(i + per, b) - 1], 1)
+            args = [t[rows, :w] for t in (ids, cls, ps, pt, valid)]
+            if torch.is_grad_enabled():
+                parts.append(checkpoint(self.attend, P, X, q_[rows], *args,
+                                        use_reentrant=False))
+            else:
+                parts.append(self.attend(P, X, q_[rows], *args))
+        out = torch.cat(parts) if parts else q_[:0]
+        return out[torch.argsort(order)]
+
+    def pairwise(self, P, X, src, tgt, ctx, gen=None):
+        c = self.cfg
+        lp = P["att_layers"][0]
+        q_ = self.lin(lp["lin_l"], X[src]) + self.lin(lp["lin_l"], X[tgt])
+        out = self.attend_blocks(P, X, q_, ctx) + lp["bias"]
         out = self.drop(gen, self.norm(lp["post_norm"], out), c["dropout"])
-        return self.mlp(P["pairwise_lin"], torch.cat([out, counts], -1))
+        return self.mlp(P["pairwise_lin"], torch.cat([out, ctx[5]], -1))
 
     def score(self, P, X, src, tgt, batch_keys=None, gen=None):
         elem = self.mlp(P["elementwise_lin"], X[src] * X[tgt])

@@ -1,8 +1,8 @@
-"""Each kind of traffic runs end to end at a tiny size on the CPU (the
-program's plain versions), in the cells of BENCHMARK.json and a test-only
-training cell: a sound run is correct, and the check says not correct for
-each planted fault the kind can have and for the control one step below
-the configuration's precision."""
+"""Each cell of BENCHMARK.json runs end to end at a tiny size on the CPU
+(the program's plain versions), with its own limits: a sound run is
+correct, and the check says not correct for each planted fault its kind of
+traffic can have and for the control one step below the configuration's
+precision."""
 import math
 
 import pytest
@@ -73,3 +73,41 @@ def test_eval_reference_pushes_its_own_rows():
     m.context(torch.tensor([1]), torch.tensor([2]))
     with pytest.raises(ValueError):
         m.context(torch.tensor([1]), torch.tensor([3]))
+
+
+def test_reference_attention_in_blocks(monkeypatch):
+    """The reference's attention over blocks of links, each block's table
+    cut to its own largest valid count and recomputed in the backward,
+    gives the loss and gradients of one whole table."""
+    import numpy as np
+    import torch
+
+    from lpbench import data as data_mod
+    from reference import model as ref_model
+    from reference import params as ref_params
+    from reference.graph import RefGraph
+
+    cfg, _ = SPEC.config("ppa-like")
+    cfg.update(tiny()["config"])
+    rng = np.random.default_rng(1)
+    e = data_mod.random_edges(rng, 400, 4000)
+    x = rng.standard_normal((400, 12)).astype(np.float32)
+    g = RefGraph(e, x, 400, cfg["adj_cap"], cfg["ppr_cap"], "cpu")
+    g.use_rows(g.push(range(400), cfg["alpha"], cfg["eps"]))
+    links = torch.as_tensor(e[:256])
+    w = torch.ones(256)
+
+    def loss_and_grads(elems):
+        monkeypatch.setattr(ref_model, "ATTEND_ELEMS", elems)
+        P = ref_params.clone(ref_params.make_weights(cfg, 12, 5, "cpu"), True)
+        gen = torch.Generator().manual_seed(9)
+        loss = ref_model.Model(cfg, g, "float32").loss(
+            P, links[:, 0], links[:, 1], w, gen)
+        loss.backward()
+        return loss.detach(), [x.grad for _, x in ref_params.leaves(P)]
+
+    whole, gw = loss_and_grads(2 ** 40)
+    blocks, gb = loss_and_grads(7 * cfg["budget_combined"] * cfg["dim"])
+    torch.testing.assert_close(blocks, whole, rtol=1e-6, atol=0)
+    for a, b in zip(gb, gw):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-7)

@@ -1,6 +1,7 @@
 """lpbench/spans.py, which reads the program's own spans and counters: the
 attribution of device kernels to spans and of idle time inside them on
-synthetic events, the metrics it feeds in traced tiny runs on the CPU, the
+synthetic events, the metrics it feeds in traced tiny runs on the CPU (the
+host's operators standing in for the device's in the training cell), the
 training step's spans, and None against a program that records none."""
 import types
 
@@ -12,7 +13,9 @@ from tiny import TINY, run_tiny
 
 NEW = ("node_encoder_ms.eval", "context_ms.eval", "key_gather_ms.eval",
        "harness_stall_ms.eval", "context_fill.eval", "ppr_push_s",
-       "bundle_build_s")
+       "bundle_build_s", "context_ms.train", "backward_ms.train",
+       "optimizer_ms.train")
+TRAIN_SPANS = ("context_ms.train", "backward_ms.train", "optimizer_ms.train")
 
 # spans a [0, 100] with a/b [10, 50] nested, c [200, 300], and one of an
 # earlier window; launches (correlation id -> ns) and device operations
@@ -62,12 +65,16 @@ def test_idle_inside_spans():
 def test_new_metrics_are_per_layer_entries():
     spec = Spec()
     names = [m["name"] for m in spec.bench["per_layer"]]
-    assert names[-len(NEW):] == list(NEW)
-    for m in spec.bench["per_layer"][-len(NEW):]:
-        assert m["source"] == "program_span"
-        assert ("workloads" in m) == m["name"].endswith(".eval")
-    assert set(NEW) <= {m["name"] for m in spec.metrics(
-        "citation2-like.eval", True)}
+    assert [n for n in names if n in NEW] == list(NEW)
+    for m in spec.bench["per_layer"]:
+        if m["name"] in NEW:
+            assert m["source"] == "program_span"
+            assert ("workloads" in m) == m["name"].endswith(
+                (".eval", ".train"))
+    for cell, suffix in (("citation2-like.eval", ".train"),
+                         ("ppa-like.train", ".eval")):
+        assert {n for n in NEW if not n.endswith(suffix)} <= {
+            m["name"] for m in spec.metrics(cell, True)}
 
 
 def test_traced_eval_run_reads_the_host_metrics(program):
@@ -92,6 +99,32 @@ def test_traced_eval_run_reads_the_host_metrics(program):
     assert paths.count("eval.sweep") == res["attempted"] > 0
 
 
+def _host_ops_as_device(prof):
+    """``spans._kineto`` with the profiler's host operators (``aten::``)
+    taken for the device's operations, each launched at its own start: on
+    the CPU the profiler records no operation of a device."""
+    launches, device = {}, []
+    lo, hi = float("inf"), float("-inf")
+    for i, e in enumerate(prof.profiler.kineto_results.events()):
+        lo, hi = min(lo, e.start_ns()), max(hi, e.end_ns())
+        if e.name().startswith("aten::"):
+            launches[-1 - i] = e.start_ns()
+            device.append((-1 - i, e.start_ns(), e.end_ns()))
+    return launches, device, (lo, hi)
+
+
+def test_traced_train_run_reads_the_span_and_host_metrics(program,
+                                                          monkeypatch):
+    monkeypatch.setattr(spans, "_kineto", _host_ops_as_device)
+    res = run_tiny("ppa-like.train", trace=1)
+    assert res["correct"], res["checks"]
+    got = res["metrics"]
+    for name in TRAIN_SPANS:
+        assert got[name]["value"] > 0, name
+    build = got["ppr_push_s"]["value"] + got["bundle_build_s"]["value"]
+    assert 0 < build <= got["host_build_s"]["value"]
+
+
 def test_untraced_run_keeps_its_metric_names(program):
     res = run_tiny("citation2-like.eval", trace=0)
     assert not set(NEW) & set(res["metrics"])
@@ -99,7 +132,7 @@ def test_untraced_run_keeps_its_metric_names(program):
 
 
 def test_train_step_spans_once_a_step(program):
-    res = run_tiny("tiny.train", trace=1)
+    res = run_tiny("ppa-like.train", trace=1)
     assert res["correct"], res["checks"]
     paths = [p for p, _, _ in program.snapshot()["intervals"]]
     for name in ("train.propagate", "train.forward", "train.backward",

@@ -23,8 +23,9 @@ def test_pe_fwd_bytes_by_hand():
 
 def test_pe_bwd_bytes_by_hand():
     # inputs: 8 + 2*4*2*8 = 128 + 3*4*2 = 24 + 140 + 480 + 384 + 4*(24+8)
-    # outputs: dkeys 2*4*8*2 = 128 + dq 64 + 480 + 4*3*8*8 = 768 + 128
-    nbytes = (8 + 128 + 24 + 140 + 480 + 384 + 128) + (128 + 64 + 480 + 768
+    # outputs: dkeys' 5 valid rows 5*8*2 = 80 + dq 64 + 480 + 4*3*8*8 = 768
+    # + 128
+    nbytes = (8 + 128 + 24 + 140 + 480 + 384 + 128) + (80 + 64 + 480 + 768
                                                        + 128)
     assert work.pe_bwd_least_s((2, 4, 8), (3, 2, 8), 2, 5) == pytest.approx(
         nbytes / work.HBM_BYTES_PER_S)
