@@ -459,6 +459,11 @@ def forward(
             valid = profiling.real_rows(ctx.valid)
             profiling.count("context.valid_slots", valid)
             profiling.count("context.table_slots", valid.numel())
+            profiling.count("context.candidate_slots", valid.shape[0] * (
+                cfg.context.candidate_columns(graph.adj_rows.nbrs.shape[1],
+                                              graph.ppr_rows.nbrs.shape[1])))
+            profiling.count("context.dropped_slots",
+                            profiling.real_rows(ctx.overflow))
     pairwise, _ = calc_pairwise(params, cfg, X_node, src, tgt, ctx,
                                 gen=gen, train=train)
     return torch.cat([elementwise, pairwise], dim=-1)

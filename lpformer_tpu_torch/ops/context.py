@@ -94,6 +94,14 @@ class ContextConfig:
     def count_dim(self) -> int:
         return {"cn": 1, "1-hop": 3, "all": 4}[self.mask_mode]
 
+    def candidate_columns(self, adj_width: int, ppr_width: int) -> int:
+        """A link's candidate columns before compaction, on either table:
+        src's adjacency row for the CNs, both endpoints' rows for the
+        1-hop class, src's PPR row for the >1-hop class (active classes
+        only)."""
+        return {"cn": adj_width, "1-hop": 3 * adj_width,
+                "all": 3 * adj_width + ppr_width}[self.mask_mode]
+
 
 @dataclasses.dataclass(frozen=True)
 class ContextTables:

@@ -61,6 +61,7 @@ from lpformer_tpu_torch.ops.pe_attention_mixed import (
     key_ptrs, launch_fwd, ln_affine, ln_backward, split_layer1_grads,
     table_grad, tile_slots,
 )
+from lpformer_tpu_torch.utils import profiling
 
 _LIB = None
 _LIB_BWD = None
@@ -331,14 +332,15 @@ class BlockedOp(torch.autograd.Function):
         (table, ids, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, bias,
          m, l, out) = ctx.saved_tensors
         keys = join_keys(table, ids)
-        g_out, delta = backward_cotangent(g_out, out, bias)
-        dkeys, dq, dw1cat, dg, db, dw2, dcb, datt = ctx.bwd(
-            keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, m, l,
-            g_out, delta, ctx.class_widths)
-        dw1, db1 = split_layer1_grads(dw1cat)
-        return (None, None, None, table_grad(dkeys, table, ids, valid), None,
-                None, None, None, dq, dw1, db1, dg, db, dw2.to(w2f.dtype),
-                dcb, datt, g_out.sum(0))
+        with profiling.span("model.pe_attention.bwd"):
+            g_out, delta = backward_cotangent(g_out, out, bias)
+            dkeys, dq, dw1cat, dg, db, dw2, dcb, datt = ctx.bwd(
+                keys, ps, pt, valid, q, w1, b1, g, b, w2f, cbias, att, m, l,
+                g_out, delta, ctx.class_widths)
+            dw1, db1 = split_layer1_grads(dw1cat)
+            dtable = table_grad(dkeys, table, ids, valid)
+        return (None, None, None, dtable, None, None, None, None, dq, dw1,
+                db1, dg, db, dw2.to(w2f.dtype), dcb, datt, g_out.sum(0))
 
 
 def fused_pe_link_attention(

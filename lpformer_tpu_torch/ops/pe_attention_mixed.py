@@ -49,6 +49,7 @@ import torch
 from lpformer_tpu_torch.ops import gather
 from lpformer_tpu_torch.ops._cuda import bind, build_cuda, check_tensors
 from lpformer_tpu_torch.ops.segment import masked_softmax
+from lpformer_tpu_torch.utils import profiling
 
 _NEG = -1e30
 _LN_EPS = 1e-5
@@ -504,14 +505,15 @@ class MixedOp(torch.autograd.Function):
         (table, ids, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
          bias, m, l, out) = ctx.saved_tensors
         keys = join_keys(table, ids)
-        g_out, delta = backward_cotangent(g_out, out, bias)
-        dkeys, dq, dw1cat, dg, db, dw2, dcb, datt = ctx.bwd(
-            keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att, m,
-            l, g_out, delta)
-        dw1, db1 = split_layer1_grads(dw1cat)
-        return (None, None, table_grad(dkeys, table, ids, valid), None, None,
-                None, None, None, dq, dw1, db1, dg, db, dw2.to(w2f.dtype),
-                dcb, datt, g_out.sum(0))
+        with profiling.span("model.pe_attention.bwd"):
+            g_out, delta = backward_cotangent(g_out, out, bias)
+            dkeys, dq, dw1cat, dg, db, dw2, dcb, datt = ctx.bwd(
+                keys, ps, pt, valid, ecls, q, w1, b1, g, b, w2f, cbias, att,
+                m, l, g_out, delta)
+            dw1, db1 = split_layer1_grads(dw1cat)
+            dtable = table_grad(dkeys, table, ids, valid)
+        return (None, None, dtable, None, None, None, None, None, dq, dw1,
+                db1, dg, db, dw2.to(w2f.dtype), dcb, datt, g_out.sum(0))
 
 
 def backward_cotangent(g_out, out, bias):

@@ -2,6 +2,7 @@
 what they record with no profiler and under ``torch.profiler``, where
 their trace events land against the profiler's own clock, and what the
 evaluation sweeps, the graph build and the training step record."""
+import dataclasses
 import math
 import time
 
@@ -183,16 +184,22 @@ def test_citation2_sweep_records_every_span_and_counter():
     assert len(_host_events(prof, {"model.context"})) == batches
 
     # the padded (0, 0) rows of each split's last batch count nowhere
-    valid = 0
+    valid = dropped = candidates = 0
     for edges, g in splits:
         t = torch.as_tensor(np.asarray(edges, np.int64))
-        valid += int(extract_context(g.adj_rows, g.ppr_rows, t[:, 0],
-                                     t[:, 1], CFG.context).valid.sum())
+        ctx = extract_context(g.adj_rows, g.ppr_rows, t[:, 0], t[:, 1],
+                              CFG.context)
+        valid += int(ctx.valid.sum())
+        dropped += int(ctx.overflow.sum())
+        candidates += len(edges) * CFG.context.candidate_columns(
+            g.adj_rows.nbrs.shape[1], g.ppr_rows.nbrs.shape[1])
     links = sum(len(e) for e, _ in splits)
     assert links < batches * BATCH
     c = snap["counters"]
     assert c == {"context.valid_slots": valid,
-                 "context.table_slots": links * CFG.context.total_budget}
+                 "context.table_slots": links * CFG.context.total_budget,
+                 "context.candidate_slots": candidates,
+                 "context.dropped_slots": dropped}
     assert valid > 0
 
     # the same scores and MRRs with tracing off
@@ -285,3 +292,95 @@ def test_train_step_records_its_phases_once_a_step():
         assert counts[name] == 2, counts
     assert counts["train.propagate/model.propagate"] == 2
     assert counts["train.forward/model.context"] == 4
+
+
+def _train_steps(cfg, steps=2, traced=True):
+    """``steps`` tiny training steps of ``cfg``, under a CPU profiler when
+    ``traced``."""
+    ds = synthetic_dataset(**KW, device="cpu")
+    params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
+                              KW["feat_dim"], device="cpu")
+    profiling.reset()
+    opt = optim.make_optimizer(1e-3, 0.0, 1.0, 4, clip_norm=1.0)
+    fn = step.make_train_step(cfg, opt)
+    for p in optim.tree_leaves(params):
+        p.requires_grad_(True)
+    state = step.TrainState(params, opt.init(params), 0)
+    gen = torch.Generator().manual_seed(1)
+    src = torch.as_tensor(ds.train_pos[:32, 0])
+    tgt = torch.as_tensor(ds.train_pos[:32, 1])
+    with (_cpu_profile() if traced else profiling.span("host")):
+        for _ in range(steps):
+            state, _ = fn(state, ds.graph, ds.mask_mult_device, None, src,
+                          tgt, torch.ones(32), gen)
+    return profiling.snapshot()
+
+
+@pytest.mark.parametrize("budget", [32, None])
+@pytest.mark.parametrize("remat", [False, True])
+def test_pe_attention_backward_span_nests_under_train_backward(budget,
+                                                               remat):
+    """Both tables' fused op: one ``model.pe_attention.bwd`` a half a step,
+    inside ``train.backward`` (under remat beside the recomputed
+    forward)."""
+    cfg = dataclasses.replace(CFG, budget_combined=budget,
+                              remat_pairwise=remat)
+    snap = _train_steps(cfg)
+    counts = {p: c for p, (c, _) in snap["spans"].items()}
+    assert counts["train.backward/model.pe_attention.bwd"] == 4, counts
+    assert not [p for p in counts if p.endswith("model.pe_attention.bwd")
+                and p != "train.backward/model.pe_attention.bwd"]
+    assert counts.get("train.backward/model.pe_attention", 0) == (
+        4 if remat else 0)
+    paths = [p for p, _, _ in snap["intervals"]]
+    assert paths.count("train.backward/model.pe_attention.bwd") == 4
+
+
+def test_context_counters_count_candidates_and_dropped_slots():
+    """``context.candidate_slots`` counts each real link's candidate
+    columns, ``context.dropped_slots`` the valid candidates its budget
+    dropped: none under a budget of every candidate, some under one forced
+    to overflow (the classic table's too)."""
+    ds, params = _dataset()
+    edges = ds.valid_neg
+    g = ds.graph
+    t = torch.as_tensor(np.asarray(edges, np.int64))
+    cols = 3 * g.adj_rows.nbrs.shape[1] + g.ppr_rows.nbrs.shape[1]
+    for cfg, overflows in ((dataclasses.replace(CFG, budget_combined=cols),
+                            False),
+                           (dataclasses.replace(CFG, budget_combined=2),
+                            True),
+                           (dataclasses.replace(
+                               CFG, budget_combined=None, budget_cn=1,
+                               budget_onehop=2, budget_non1hop=1), True)):
+        params = lt.init_lpformer(torch.Generator().manual_seed(0), cfg,
+                                  KW["feat_dim"], device="cpu")
+        profiling.reset()
+        X = lt.propagate(params, cfg, g)
+        with _cpu_profile():
+            harness.score_edges(harness.make_score_fn(cfg), params, g, X,
+                                edges, BATCH)
+        c = profiling.snapshot()["counters"]
+        ctx = extract_context(g.adj_rows, g.ppr_rows, t[:, 0], t[:, 1],
+                              cfg.context)
+        dropped = int(ctx.overflow.sum())
+        assert c["context.candidate_slots"] == len(edges) * cols
+        assert c["context.dropped_slots"] == dropped
+        assert (dropped > 0) == overflows
+        assert c["context.valid_slots"] + dropped <= len(edges) * cols
+
+
+def test_backward_span_and_context_counters_launch_nothing_untraced(
+        monkeypatch):
+    """With no profiler the backward span makes no trace event and the
+    context counters are never reached: no counter call, no counter."""
+    made, counted = [], []
+    monkeypatch.setattr(profiling, "_HostEvent",
+                        lambda name: made.append(name))
+    real = profiling.count
+    monkeypatch.setattr(profiling, "count",
+                        lambda *a: (counted.append(a[0]), real(*a)))
+    snap = _train_steps(CFG, steps=1, traced=False)
+    assert snap["spans"]["host/train.backward/model.pe_attention.bwd"][0] \
+        == 2
+    assert made == [] and counted == [] and snap["counters"] == {}
